@@ -1,0 +1,210 @@
+"""Decoder-only transformer LM, dense branch: the torch twin of
+``repro.models.transformer`` for serving (prefill + decode).
+
+Parameters live in ``nn.Module``s with the reference's names and (in, out)
+layouts; where the reference stacks layers on a leading axis and scans,
+the port keeps an ``nn.ModuleList`` and loops (``repro_torch.convert``
+unstacks).  MoE, MLA, MTP, the vision frontend and the training loss are
+later slices.
+
+The KV cache is ``{"pos": int, "layers": {"k": (L,B,S,Hkv,hd), "v": ...}}``,
+allocated once by :func:`decoder_init_cache` and written IN PLACE by prefill
+and decode (the reference donates the cache buffer to its jitted step and
+gets a new one back; here the same buffer is updated and returned).
+Sliding-window models keep a ring buffer of at most ``window`` slots.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn as tnn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import nn
+from repro_torch.models.attention import attention, decode_attention
+
+
+def _param(*shape, device, dtype) -> tnn.Parameter:
+    return tnn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                         requires_grad=False)
+
+
+class Attention(tnn.Module):
+    """GQA projections: wq (D, Hq*hd), wk/wv (D, Hkv*hd), wo (Hq*hd, D),
+    and bq/bk/bv when ``cfg.qkv_bias``."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        D, hd = cfg.d_model, cfg.resolved_head_dim
+        Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+        kw = dict(device=device, dtype=dtype)
+        self.wq = _param(D, Hq * hd, **kw)
+        self.wk = _param(D, Hkv * hd, **kw)
+        self.wv = _param(D, Hkv * hd, **kw)
+        self.wo = _param(Hq * hd, D, **kw)
+        if cfg.qkv_bias:
+            self.bq = _param(Hq * hd, **kw)
+            self.bk = _param(Hkv * hd, **kw)
+            self.bv = _param(Hkv * hd, **kw)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            nn.dense_init_(w, gen)
+        for name in ("bq", "bk", "bv"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+
+
+class FFN(tnn.Module):
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        in_w = 2 * cfg.d_ff if cfg.act in ("swiglu", "geglu") else cfg.d_ff
+        self.wi = _param(cfg.d_model, in_w, device=device, dtype=dtype)
+        self.wo = _param(cfg.d_ff, cfg.d_model, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn.dense_init_(self.wi, gen)
+        nn.dense_init_(self.wo, gen)
+
+
+class Block(tnn.Module):
+    """Pre-norm residual block: x + attn(rmsnorm(x)), then x + mlp(rmsnorm(x))."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.ln1 = _param(cfg.d_model, device=device, dtype=dtype)
+        self.ln2 = _param(cfg.d_model, device=device, dtype=dtype)
+        self.attn = Attention(cfg, device, dtype)
+        self.mlp = FFN(cfg, device, dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        self.attn.reset_parameters(gen)
+        self.mlp.reset_parameters(gen)
+
+
+class Decoder(tnn.Module):
+    """emb (V, D), ln_f (D,), head (D, V) unless tied, layers[0..L)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.emb = _param(cfg.vocab_size, cfg.d_model, device=device, dtype=dtype)
+        self.ln_f = _param(cfg.d_model, device=device, dtype=dtype)
+        if not cfg.tie_embeddings:
+            self.head = _param(cfg.d_model, cfg.vocab_size, device=device, dtype=dtype)
+        self.layers = tnn.ModuleList(Block(cfg, device, dtype)
+                                     for _ in range(cfg.n_layers))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn.embed_init_(self.emb, gen)
+        self.ln_f.zero_()
+        if hasattr(self, "head"):
+            nn.dense_init_(self.head, gen)
+        for layer in self.layers:
+            layer.reset_parameters(gen)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        w = self.emb.T if self.cfg.tie_embeddings else self.head
+        return h @ w
+
+
+# ---------------------------------------------------------------------------
+# Attention pieces
+# ---------------------------------------------------------------------------
+
+def qkv(p: Attention, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = nn.apply_rope(q.view(B, S, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = nn.apply_rope(k.view(B, S, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    return q, k, v.view(B, S, cfg.n_kv_heads, hd)
+
+
+def attn_decode(p: Attention, x, cfg: ModelConfig, k_cache, v_cache, length: int):
+    """One-token step.  x: (B,1,D); caches (B,Smax,Hkv,hd), written in place.
+    Sliding-window models use a ring buffer of size <= window."""
+    B = x.shape[0]
+    Smax = k_cache.shape[1]
+    if not cfg.sliding_window and length >= Smax:
+        raise ValueError(f"KV cache full: position {length} >= cache length {Smax}")
+    positions = torch.full((B, 1), length, dtype=torch.long, device=x.device)
+    q, k, v = qkv(p, x, cfg, positions)
+    slot = length % Smax if cfg.sliding_window else length
+    k_cache[:, slot] = k[:, 0]
+    v_cache[:, slot] = v[:, 0]
+    o = decode_attention(q[:, 0], k_cache, v_cache, min(length + 1, Smax))
+    return o.reshape(B, 1, -1) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Cache, prefill, decode
+# ---------------------------------------------------------------------------
+
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def decoder_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                       dtype) -> dict:
+    S = cache_len(cfg, max_len)
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"pos": 0,
+            "layers": {"k": torch.zeros(shape, device=device, dtype=dtype),
+                       "v": torch.zeros(shape, device=device, dtype=dtype)}}
+
+
+def ring_write(cache_arr, kv, window: int) -> None:
+    """Write full-sequence kv (B,S,...) into cache (B,W,...) in place; with a
+    window and S > W, the last W positions land at slot pos % W."""
+    S, W = kv.shape[1], cache_arr.shape[1]
+    if not window or S <= W:
+        if S > W:
+            raise ValueError(f"prompt of {S} tokens exceeds the KV cache length {W}")
+        cache_arr[:, :S] = kv
+        return
+    idx = torch.arange(S - W, S, device=kv.device) % W
+    cache_arr[:, idx] = kv[:, S - W:]
+
+
+def decoder_prefill(params: Decoder, cache: dict, tokens, cfg: ModelConfig):
+    """Prefill the cache from a full prompt (B, S).  Returns (cache, logits of
+    the last position (B, V))."""
+    x = nn.embed_lookup(params.emb, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+    for i, lp in enumerate(params.layers):
+        h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
+        q, k, v = qkv(lp.attn, h, cfg, positions)
+        o = attention(q, k, v, causal=True, window=cfg.sliding_window)
+        x = x + o.reshape(B, S, -1) @ lp.attn.wo
+        ring_write(ck[i], k, cfg.sliding_window)
+        ring_write(cv[i], v, cfg.sliding_window)
+        h = nn.rmsnorm(x, lp.ln2, cfg.norm_eps)
+        x = x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
+    cache["pos"] = S
+    h = nn.rmsnorm(x[:, -1], params.ln_f, cfg.norm_eps)
+    return cache, params.logits(h)
+
+
+def decoder_decode_step(params: Decoder, cache: dict, tokens, cfg: ModelConfig):
+    """tokens: (B,) current token ids.  Returns (cache, logits (B,V))."""
+    pos = cache["pos"]
+    x = nn.embed_lookup(params.emb, tokens[:, None])
+    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
+    for i, lp in enumerate(params.layers):
+        h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
+        x = x + attn_decode(lp.attn, h, cfg, ck[i], cv[i], pos)
+        h = nn.rmsnorm(x, lp.ln2, cfg.norm_eps)
+        x = x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
+    cache["pos"] = pos + 1
+    h = nn.rmsnorm(x[:, 0], params.ln_f, cfg.norm_eps)
+    return cache, params.logits(h)

@@ -1,0 +1,181 @@
+"""The port's attention against the JAX package.
+
+``flash_attention_plain`` (the kernel's plain version, which the CPU path
+runs) is held to the Pallas kernel in interpret mode on the Sq == Sk sweep
+and windows of tests/test_kernels.py, and to ``repro.kernels.ref`` for
+Sq < Sk and ragged lengths, which the Pallas kernel does not take; its lse
+is held to a logsumexp of the reference scores.  Tolerances are those of
+tests/test_kernels.py: f32 2e-4, bf16 3e-2.  The kernel itself is held to
+the plain version on the card (``gpu`` marker): o per row (max|Δ| of a row
+over max|plain| of that row) at those bounds, and lse, f32 on both sides,
+at 2e-4 absolute for every input dtype.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import (
+    flash_attention_fwd,
+    flash_attention_plain,
+)
+from repro_torch.models import attention as tattn
+
+TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided when the test runs (never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(seed, B, Sq, Sk, Hq, Hkv, d, dtype):
+    """Same values for both frameworks: f32 numpy draws rounded to dtype."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(0, 1, s).astype(np.float32)
+            for s in ((B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d))]
+    jx = [jnp.asarray(a, JDT[dtype]) for a in arrs]
+    tx = [torch.from_numpy(a).to(TDT[dtype]) for a in arrs]
+    return jx, tx
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _lse_ref(q, k, causal, window):
+    """logsumexp over keys of the masked reference scores, (B,Hq,Sq)."""
+    q, k = _f32(q), _f32(k)
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kk = np.repeat(k, Hq // Hkv, axis=2)
+    s = np.einsum("bqhd,bshd->bhqs", q, kk) / math.sqrt(d)
+    qpos = (Sk - Sq) + np.arange(Sq)
+    kpos = np.arange(Sk)
+    m = np.ones((Sq, Sk), bool)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window:
+        m &= qpos[:, None] - kpos[None, :] < window
+    s = np.where(m, s, -np.inf)
+    mx = s.max(-1, keepdims=True)
+    return (mx + np.log(np.exp(s - mx).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,Hq,Hkv,d,bq,bk", [
+    (128, 4, 4, 64, 64, 64),      # MHA
+    (128, 4, 1, 32, 32, 64),      # MQA, uneven blocks
+    (256, 8, 2, 64, 128, 128),    # GQA
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_sweep(S, Hq, Hkv, d, bq, bk, causal, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(0, 2, S, S, Hq, Hkv, d, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                                interpret=True)
+    o, lse = flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    np.testing.assert_allclose(_f32(o), _f32(want), **TOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), _lse_ref(q, k, causal, 0), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [32, 96])
+def test_plain_matches_pallas_window(window):
+    (jq, jk, jv), (q, k, v) = _inputs(1, 1, 256, 256, 4, 2, 32, "float32")
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                block_q=64, block_k=64, interpret=True)
+    o, lse = flash_attention_plain(q, k, v, causal=True, window=window,
+                                   block_q=64, block_k=64)
+    np.testing.assert_allclose(_f32(o), _f32(want), **TOL["float32"])
+    np.testing.assert_allclose(lse.numpy(), _lse_ref(q, k, True, window),
+                               **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,window,causal", [
+    (32, 160, 0, True),           # Sq < Sk: chunked prefill against a longer cache
+    (48, 200, 64, True),          # Sq < Sk with a window
+    (100, 100, 0, True),          # ragged S: blocks do not divide it
+    (77, 77, 20, True),           # ragged S with a window
+    (60, 90, 0, False),           # ragged, bidirectional
+])
+def test_plain_matches_ref_offset_and_ragged(Sq, Sk, window, causal, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(2, 2, Sq, Sk, 4, 2, 16, dtype)
+    want = jref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    o, lse = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   block_q=32, block_k=32)
+    np.testing.assert_allclose(_f32(o), _f32(want), **TOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), _lse_ref(q, k, causal, window),
+                               **TOL[dtype])
+    mine = tref.attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(mine), _f32(want), **TOL[dtype])
+
+
+def test_attention_matches_jax_model_path():
+    """models.attention on the CPU equals the reference's model-path attention."""
+    (jq, jk, jv), (q, k, v) = _inputs(3, 2, 64, 64, 4, 1, 16, "float32")
+    want = jattn.attention(jq, jk, jv, causal=True, chunk_q=16, chunk_k=32, window=24)
+    got = tattn.attention(q, k, v, causal=True, window=24)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,length", [(4, 4, 9), (4, 1, 16), (8, 2, 1)])
+def test_decode_attention_matches_jax(Hq, Hkv, length, dtype):
+    rng = np.random.default_rng(4)
+    q = rng.normal(0, 1, (2, Hq, 32)).astype(np.float32)
+    kc = rng.normal(0, 1, (2, 16, Hkv, 32)).astype(np.float32)
+    vc = rng.normal(0, 1, (2, 16, Hkv, 32)).astype(np.float32)
+    want = jattn.decode_attention(*(jnp.asarray(a, JDT[dtype]) for a in (q, kc, vc)),
+                                  jnp.asarray(length))
+    got = tattn.decode_attention(
+        *(torch.from_numpy(a).to(TDT[dtype]) for a in (q, kc, vc)), length)
+    assert got.dtype == TDT[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+def test_wrapper_dispatches_by_device():
+    _, (q, k, v) = _inputs(5, 1, 8, 8, 2, 2, 64, "float32")
+    launches, calls = flash_attention_fwd.launches, flash_attention_plain.calls
+    flash_attention_fwd(q, k, v)
+    assert flash_attention_plain.calls == calls + 1
+    assert flash_attention_fwd.launches == launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,d,window", [
+    (2, 256, 256, 8, 8, 128, 0),
+    (1, 200, 200, 8, 1, 256, 0),
+    (2, 96, 1000, 5, 5, 64, 0),
+    (1, 700, 700, 6, 2, 128, 128),
+])
+def test_kernel_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, d, window, dtype,
+                                      cuda_device):
+    _, (q, k, v) = _inputs(6, B, Sq, Sk, Hq, Hkv, d, dtype)
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    launches = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == launches + 1
+    po, plse = flash_attention_plain(q, k, v, causal=True, window=window)
+    o, po = _f32(o.cpu()), _f32(po.cpu())
+    row_rel = np.abs(o - po).max(-1) / np.abs(po).max(-1)
+    assert row_rel.max() <= TOL[dtype]["rtol"], row_rel.max()
+    np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(), atol=2e-4, rtol=0)

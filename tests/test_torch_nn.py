@@ -1,0 +1,85 @@
+"""The port's nn primitives against ``repro.models.nn`` in f32 at 1e-5, on
+the same numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import nn as jnn
+from repro_torch.models import nn as tnn
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _pair(*arrays):
+    return ([jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays])
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 64), (3, 48)])
+def test_rmsnorm(shape):
+    rng = _rng()
+    x = rng.normal(0, 2, shape).astype(np.float32)
+    g = rng.normal(0, 0.5, shape[-1:]).astype(np.float32)
+    (jx, jg), (tx, tg) = _pair(x, g)
+    np.testing.assert_allclose(tnn.rmsnorm(tx, tg, 1e-5).numpy(),
+                               np.asarray(jnn.rmsnorm(jx, jg, 1e-5)), **TOL)
+
+
+def test_rmsnorm_keeps_bf16():
+    x = torch.from_numpy(_rng().normal(0, 1, (4, 32)).astype(np.float32)).bfloat16()
+    assert tnn.rmsnorm(x, torch.zeros(32, dtype=torch.bfloat16)).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["gelu", "silu"])
+def test_act_fn(name):
+    x = _rng(1).normal(0, 3, (1000,)).astype(np.float32)
+    (jx,), (tx,) = _pair(x)
+    np.testing.assert_allclose(tnn.act_fn(name)(tx).numpy(),
+                               np.asarray(jnn.act_fn(name)(jx)), **TOL)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_ffn(act):
+    rng = _rng(2)
+    d, f = 32, 48
+    in_w = 2 * f if act in ("swiglu", "geglu") else f
+    x = rng.normal(0, 1, (2, 7, d)).astype(np.float32)
+    wi = (rng.normal(0, 1, (d, in_w)) / np.sqrt(d)).astype(np.float32)
+    wo = (rng.normal(0, 1, (f, d)) / np.sqrt(f)).astype(np.float32)
+    (jx, jwi, jwo), (tx, twi, two) = _pair(x, wi, wo)
+    want = jnn.ffn_apply({"wi": jwi, "wo": jwo}, jx, act)
+    np.testing.assert_allclose(tnn.ffn_apply(twi, two, tx, act).numpy(),
+                               np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e5])
+@pytest.mark.parametrize("pos_shape", ["batched", "shared"])
+def test_rope(theta, pos_shape):
+    rng = _rng(3)
+    x = rng.normal(0, 1, (2, 9, 3, 16)).astype(np.float32)
+    pos = (rng.integers(0, 500, (2, 9)) if pos_shape == "batched"
+           else np.arange(9) + 40).astype(np.int32)
+    (jx, jp), (tx, tp) = _pair(x, pos)
+    np.testing.assert_allclose(tnn.apply_rope(tx, tp.long(), theta).numpy(),
+                               np.asarray(jnn.apply_rope(jx, jp, theta)), **TOL)
+    np.testing.assert_allclose(tnn.rope_freqs(16, theta).numpy(),
+                               np.asarray(jnn.rope_freqs(16, theta)), **TOL)
+
+
+def test_embed_lookup():
+    rng = _rng(4)
+    emb = rng.normal(0, 1, (50, 8)).astype(np.float32)
+    tok = rng.integers(0, 50, (3, 6)).astype(np.int64)
+    np.testing.assert_array_equal(
+        tnn.embed_lookup(torch.from_numpy(emb), torch.from_numpy(tok)).numpy(),
+        np.asarray(jnn.embed_lookup(jnp.asarray(emb), jnp.asarray(tok))))
+
+
+def test_dtype_of():
+    for name in ("bfloat16", "float32", "float16"):
+        assert str(tnn.dtype_of(name)) == f"torch.{name}"

@@ -1,0 +1,77 @@
+"""Ground rules of the PyTorch port: it imports neither jax nor anything of
+``repro``; its entry points run on cuda unless asked for the CPU and raise
+with no card; its configs are exact copies of the reference's."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (both frameworks import side by side in the tests)
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro_torch import configs
+from repro_torch.models import build
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORTED = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b"]
+
+
+def test_port_imports_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in\n"
+        "        pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "assert len(mods) >= 15, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_build_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_reduced("llama2-7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg)
+    with pytest.raises(RuntimeError):
+        build(cfg, device="cuda")
+    assert build(cfg, device="cpu").device.type == "cpu"
+
+
+def test_launcher_defaults_to_cuda(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama2-7b", "--gen", "1", "--prompt-len", "4"])
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_configs_are_exact_copies(arch):
+    for get in ("get", "get_reduced"):
+        want = dataclasses.asdict(getattr(jconfigs, get)(arch))
+        assert dataclasses.asdict(getattr(configs, get)(arch)) == want
+
+
+@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCHS) - set(PORTED)))
+def test_unported_archs_name_their_roadmap_item(arch):
+    with pytest.raises(KeyError, match="ROADMAP A"):
+        configs.get(arch)
+    jcfg = jconfigs.get_reduced(arch)
+    fields = {f.name for f in dataclasses.fields(configs.ModelConfig)}
+    cfg = configs.ModelConfig(**{k: v for k, v in dataclasses.asdict(jcfg).items()
+                                 if k in fields})
+    if cfg.family == "dense":      # only its config is missing: the branch builds it
+        assert build(cfg, device="cpu").cfg == cfg
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        build(cfg, device="cpu")
