@@ -7,22 +7,33 @@ Phases, each printing one JSON line; a failing phase raises and the script
 exits nonzero without printing a result:
 
   device    card name and count, nvidia-smi name and power limit
-  build     nvcc build of every kernel source for sm_90a (ptxas report, seconds)
-  kernels   flash_attention_fwd (the Hopper kernel) against flash_attention_plain
-            (its plain PyTorch version) on the same inputs, at the serving
-            path's shapes and around them: o held per row, max|Δ| of a row
-            over max|plain| of that row, at f32 2e-4 and bf16 3e-2 (the
-            bounds of tests/test_kernels.py); lse, f32 on both sides for
-            every input dtype, at 2e-4 absolute; kernel / plain / SDPA times
-            (CUDA events) and the bound
-  reference a small llama-shaped model (head dim 128) served on the card
-            and on the CPU from the same weights: f32 logits agree to 1e-4
-  serve     llama2-7b at full width (32 layers, d_model 4096, bf16 weights
-            drawn on the card from a seed), batch 4, prompt 512, 32 new
-            tokens through ServeEngine.generate; kernel launches counted over
-            that one run (32 per prefill, 0 plain-version calls); prefill ms,
-            decode ms/token, tok/s, peak memory; decode-vs-prefill at full
-            width (rel < 0.08, as tests/test_models_smoke.py)
+  build     nvcc build of every kernel source for sm_90a (ptxas report,
+            seconds, shared memory per block)
+  kernels   each Hopper kernel against its plain PyTorch version on the
+            same inputs, at its serving path's shape and around it, with
+            kernel / plain (/ library) times by CUDA events and the bound:
+            flash_attention_fwd: o held per row, max|Δ| of a row over
+              max|plain| of that row, at f32 2e-4 and bf16 3e-2 (the bounds
+              of tests/test_kernels.py); lse, f32 on both sides for every
+              input dtype, at 2e-4 absolute; SDPA as the library yardstick;
+            ssd_scan_fwd: y held at max|Δ| / max|plain| <= f32 2e-5, bf16
+              3e-2, h_last at 2e-5 relative (tests/test_kernels.py:73);
+            wkv6_fwd: y and S_last at 2e-5 relative (tests/test_kernels.py:88)
+  reference small llama (head dim 128), zamba2 (SSD scan, attention head dim
+            112) and rwkv6 models served on the card and on the CPU from
+            the same weights: f32 logits of prefill and 3 decode steps agree
+            to 1e-4
+  serve     llama2-7b, zamba2-7b and rwkv6-1.6b at full width (bf16 weights
+            drawn on the card from a seed), one after the other, batch 4,
+            prompt 512, 32 new tokens through ServeEngine.generate; kernel
+            launches counted over that one run (llama2-7b: 32 flash per
+            prefill; zamba2-7b: 81 SSD and 13 flash per prefill; rwkv6-1.6b:
+            24 WKV6 per prefill and per decode step, 792 in all; 0 plain-
+            version calls); repeatable greedy output; prefill ms, decode
+            ms/token, tok/s, peak memory; decode-vs-prefill at full width
+            (rel < 0.08, as tests/test_models_smoke.py)
+  trace     per served model: torch.profiler over one prefill and 8 decode
+            steps, device time by kernel and the device's idle share
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -32,6 +43,7 @@ False) so the f32 comparisons hold full f32 precision.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -45,6 +57,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM dense
 PEAK_BYTES = 3.35e12                                           # H100 SXM HBM3
 TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}   # o: max|Δ| / max|plain| of each row
 TOL_LSE = 2e-4                                       # lse (f32 for every dtype): absolute
+TOL_SCAN = {torch.bfloat16: 3e-2, torch.float32: 2e-5}   # SSD y: max|Δ| / max|plain|
+TOL_STATE = 2e-5                                     # WKV6 y, and every state: relative
 SEED = 0
 
 
@@ -66,6 +80,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """Least time the card needs: max(operations / peak, bytes / HBM rate)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def rel_err(got, want) -> float:
+    """max|Δ| / max|want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def finite(*ts) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
 def band_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs inside the causal/window band."""
     qpos = (Sk - Sq) + np.arange(Sq, dtype=np.int64)
@@ -75,12 +105,11 @@ def band_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
 
 
 def bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype):
-    """Least time the card needs: max(FLOPs / peak, bytes / HBM rate)."""
-    flops = 4.0 * B * Hq * d * band_pairs(Sq, Sk, causal, window)   # QK^T and PV
+    """Flash attention: least time for QK^T and PV over the band, q/k/v/o/lse bytes."""
+    flops = 4.0 * B * Hq * d * band_pairs(Sq, Sk, causal, window)
     esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * B * d * (2 * Sq * Hq + 2 * Sk * Hkv) + 4 * B * Hq * Sq   # q,k,v,o + lse
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
+    nbytes = esize * B * d * (2 * Sq * Hq + 2 * Sk * Hkv) + 4 * B * Hq * Sq
+    return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
 def band_mask(Sq: int, Sk: int, causal: bool, window: int) -> torch.Tensor:
@@ -93,6 +122,11 @@ def band_mask(Sq: int, Sk: int, causal: bool, window: int) -> torch.Tensor:
     if window:
         m &= qpos - kpos < window
     return m
+
+
+def chunk_rows(S: int, Q: int):
+    """Valid rows of each chunk of Q over S."""
+    return [min(Q, S - c0) for c0 in range(0, S, Q)]
 
 
 def phase_device():
@@ -111,13 +145,25 @@ def phase_build():
     import ctypes
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.ssd_scan import SHAPES
+    from repro_torch.kernels.wkv6 import HEAD_DIMS as WKV_DIMS
 
     t0 = time.perf_counter()
     built = build.build()
-    smem_fn = build.load("flash_attention_fwd").flash_attention_fwd_smem_bytes
-    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
+
+    def smem(lib, fn_name, nargs):
+        fn = getattr(build.load(lib), fn_name)
+        fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
+        return fn
+
+    fa = smem("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 1)
+    ssd = smem("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 2)
+    wkv = smem("wkv6_fwd", "wkv6_fwd_smem_bytes", 1)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         flash_attention_fwd_smem_bytes={d: smem_fn(d) for d in (64, 128, 256)},
+         smem_bytes={"flash_attention_fwd": {d: fa(d) for d in HEAD_DIMS},
+                     "ssd_scan_fwd": {f"P={p},N={n}": ssd(p, n) for p, n in SHAPES},
+                     "wkv6_fwd": {d: wkv(d) for d in WKV_DIMS}},
          libs={n: {"path": str(b.path.relative_to(Path(__file__).resolve().parent)),
                    "nvcc_s": round(b.seconds, 3), "cached": b.cached,
                    "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
@@ -140,6 +186,7 @@ CASES = [
     ("llama2-7b prefill f32", 4, 512, 512, 32, 32, 128, True, 0, torch.float32),
     ("gemma-2b MQA d=256 f32", 2, 512, 512, 8, 1, 256, True, 0, torch.float32),
     ("gpt2-1.5b ragged S=300 f32", 2, 300, 300, 25, 25, 64, True, 0, torch.float32),
+    ("zamba2-7b shared block d=112", 4, 512, 512, 32, 32, 112, True, 0, torch.bfloat16),
 ]
 
 
@@ -164,8 +211,7 @@ def phase_kernels():
         err_o = d_o.max().item()
         row_rel_o = (d_o.amax(-1) / po.float().abs().amax(-1).clamp_min(1e-30)).max().item()
         err_lse = (lse - plse).abs().max().item()
-        ok = (row_rel_o <= tol and err_lse <= TOL_LSE
-              and bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()))
+        ok = row_rel_o <= tol and err_lse <= TOL_LSE and finite(o, lse)
         del d_o
         reps = 20 if main else 5
         kernel_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), reps)
@@ -194,9 +240,142 @@ def phase_kernels():
             failed.append(label)
         del q, k, v, o, lse, po, plse
         torch.cuda.empty_cache()
-    emit("kernels", cases=rows)
+    emit("kernels", kernel="flash_attention_fwd", cases=rows)
     if failed:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {failed}")
+    return rows[0]
+
+
+# (label, B, S, H, P, N, h0, dtype); the first is the serving path's shape
+# (zamba2-7b prefill: batch 4, prompt 512, 112 heads of 64, state 64).
+SSD_CASES = [
+    ("zamba2-7b prefill", 4, 512, 112, 64, 64, False, torch.bfloat16),
+    ("zamba2-7b prefill f32", 4, 512, 112, 64, 64, False, torch.float32),
+    ("ragged S=1000", 2, 1000, 112, 64, 64, False, torch.bfloat16),
+    ("ragged S=300 f32", 2, 300, 112, 64, 64, False, torch.float32),
+    ("h0 in, h_last out", 4, 512, 112, 64, 64, True, torch.bfloat16),
+    ("h0 in, h_last out, ragged S=300 f32", 2, 300, 112, 64, 64, True, torch.float32),
+    ("S=4096", 4, 4096, 112, 64, 64, False, torch.bfloat16),
+]
+
+
+def ssd_bound(B, S, H, P, N, h0, dtype, Q=64):
+    """Bytes: x, B, C (dtype), dt (f32), A, h0 read once; y (dtype) and h_last
+    (f32) written once.  Operations: the chunked products on the unmasked
+    half (C B^T and G xdt over i >= j, C h and the state update), 2 per
+    multiply-add."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H + 4 * H
+              + 4 * B * H * P * N * (2 if h0 else 1))
+    mac = sum(n * (n + 1) // 2 * (N + P) + 2 * n * P * N for n in chunk_rows(S, Q))
+    flops = 2.0 * B * H * mac
+    return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
+
+
+def phase_ssd_kernels():
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, failed = [], []
+    for i, (label, B, S, H, P, N, with_h0, dt) in enumerate(SSD_CASES):
+        main = i == 0
+        # x, B, C as views of one conv output, as mamba2_apply passes them
+        conv = torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda").to(dt)
+        x = conv[..., :H * P].view(B, S, H, P)
+        Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+        dtv = 0.05 + 0.95 * torch.rand((B, S, H), generator=gen, device="cuda")
+        A = -(0.3 + 1.7 * torch.rand((H,), generator=gen, device="cuda"))
+        h0 = (torch.randn((B, H, P, N), generator=gen, device="cuda") if with_h0 else None)
+        args = (x, dtv, A, Bm, Cm, h0)
+        y, h = ssd_scan_fwd(*args)
+        torch.cuda.synchronize()
+        py, ph = ssd_scan_plain(*args)
+        err_y, err_h = rel_err(y, py), rel_err(h, ph)
+        ok = err_y <= TOL_SCAN[dt] and err_h <= TOL_STATE and finite(y, h)
+        kernel_ms = cuda_ms(lambda: ssd_scan_fwd(*args), 20 if main else 5)
+        plain_ms = cuda_ms(lambda: ssd_scan_plain(*args), 5 if main else 1, warmup=1)
+        bms, by, flops, nbytes = ssd_bound(B, S, H, P, N, with_h0, dt)
+        rows.append(dict(case=label, B=B, S=S, H=H, P=P, N=N, h0=with_h0,
+                         dtype=str(dt).removeprefix("torch."), tol_y=TOL_SCAN[dt],
+                         tol_state=TOL_STATE, rel_err_y=err_y, rel_err_h_last=err_h,
+                         max_abs_err_y=(y.float() - py.float()).abs().max().item(),
+                         ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+                         mbytes=nbytes / 1e6, gbytes_per_s=nbytes / kernel_ms / 1e6))
+        if not ok:
+            failed.append(label)
+        del conv, x, Bm, Cm, dtv, A, h0, y, h, py, ph, args
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="ssd_scan_fwd", cases=rows)
+    if failed:
+        raise AssertionError(f"ssd_scan_fwd disagrees with its plain version: {failed}")
+    return rows[0]
+
+
+# (label, B, S, H, hd, s0, dtype of r/k/v); the first is the serving path's
+# shape (rwkv6-1.6b prefill: batch 4, prompt 512, 32 heads of 64).
+WKV_CASES = [
+    ("rwkv6-1.6b prefill", 4, 512, 32, 64, False, torch.bfloat16),
+    ("rwkv6-1.6b prefill f32", 4, 512, 32, 64, False, torch.float32),
+    ("ragged S=1000", 2, 1000, 32, 64, False, torch.bfloat16),
+    ("ragged S=300 f32", 2, 300, 32, 64, False, torch.float32),
+    ("s0 in, S_last out", 4, 512, 32, 64, True, torch.bfloat16),
+    ("decode step S=1", 4, 1, 32, 64, True, torch.bfloat16),
+    ("S=4096", 4, 4096, 32, 64, False, torch.bfloat16),
+]
+
+
+def wkv_bound(B, S, H, hd, s0, dtype, Q=32):
+    """Bytes: r, k, v (dtype), logw (f32), u, s0 read once; y and S_last (f32)
+    written once.  Operations: per chunk the strict-lower scores (an
+    exponential and 3 operations per (t, i, c)), the bonus, y = A v, the
+    inter-chunk (r o e^{cw-w}) S, the state update, and the 2 exponentials
+    per (t, c) that form r o e^{cw-w} and k o e^{cw_Q-cw}."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * 3 * B * S * H * hd + 4 * B * S * H * hd + 4 * H * hd
+              + 4 * B * S * H * hd + 4 * B * H * hd * hd * (2 if s0 else 1))
+    ops = sum(n * (n - 1) // 2 * hd * 4 + n * hd * 3 + n * (n + 1) // 2 * hd * 2
+              + 4 * n * hd * hd + 2 * n * hd for n in chunk_rows(S, Q))
+    flops = float(B * H * ops)
+    return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
+
+
+def phase_wkv_kernels():
+    from repro_torch.kernels.wkv6 import wkv6_fwd, wkv6_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, failed = [], []
+    for i, (label, B, S, H, hd, with_s0, dt) in enumerate(WKV_CASES):
+        main = i == 0
+        r, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
+                   for _ in range(3))
+        logw = -(0.02 + 2.98 * torch.rand((B, S, H, hd), generator=gen, device="cuda"))
+        u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
+        s0 = torch.randn((B, H, hd, hd), generator=gen, device="cuda") if with_s0 else None
+        args = (r, k, v, logw, u, s0)
+        y, s = wkv6_fwd(*args)
+        torch.cuda.synchronize()
+        py, ps = wkv6_plain(*args)
+        err_y, err_s = rel_err(y, py), rel_err(s, ps)
+        ok = (err_y <= TOL_STATE and err_s <= TOL_STATE and finite(y, s)
+              and y.dtype == torch.float32)
+        kernel_ms = cuda_ms(lambda: wkv6_fwd(*args), 20 if main else 5)
+        plain_ms = cuda_ms(lambda: wkv6_plain(*args), 5 if main else 1, warmup=1)
+        bms, by, flops, nbytes = wkv_bound(B, S, H, hd, with_s0, dt)
+        rows.append(dict(case=label, B=B, S=S, H=H, hd=hd, s0=with_s0,
+                         dtype=str(dt).removeprefix("torch."), tol=TOL_STATE,
+                         rel_err_y=err_y, rel_err_s_last=err_s,
+                         max_abs_err_y=(y - py).abs().max().item(), ok=ok,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bms, bound_by=by, gflop=flops / 1e9,
+                         mbytes=nbytes / 1e6, gbytes_per_s=nbytes / kernel_ms / 1e6))
+        if not ok:
+            failed.append(label)
+        del r, k, v, logw, u, s0, y, s, py, ps, args
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="wkv6_fwd", cases=rows)
+    if failed:
+        raise AssertionError(f"wkv6_fwd disagrees with its plain version: {failed}")
     return rows[0]
 
 
@@ -205,38 +384,76 @@ def _rel(a, b) -> float:
     return ((a - b).abs().max() / (b.abs().max() + 1e-6)).item()
 
 
+# Small f32 configurations for the card-vs-CPU check, cut from the full ones
+# so that every kernel instantiation the serving paths use runs.
+REFERENCE = {
+    "llama2-7b": ("2 layers, d_model 256, 2 heads of 128",
+                  dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, d_ff=512)),
+    "zamba2-7b": ("4 layers (shared block after layers 1 and 3), d_model 256, SSD heads "
+                  "of 64 with state 64, 2 attention heads of 112",
+                  dict(n_layers=4, d_model=256, n_heads=2, n_kv_heads=2, head_dim=112,
+                       d_ff=512, ssm_state=64, ssm_head_dim=64, attn_every=2)),
+    "rwkv6-1.6b": ("2 layers, d_model 256, 4 WKV heads of 64",
+                   dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                        rwkv_head_dim=64, rwkv_lora_decay=16, rwkv_lora_mix=16)),
+}
+
+
 def phase_reference():
     from repro_torch import configs
     from repro_torch.models import build
 
-    cfg = configs.get("llama2-7b").with_(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2,
-                                          d_ff=512, vocab_size=512, dtype="float32")
-    cpu, gpu = build(cfg, device="cpu", seed=SEED), build(cfg, device="cuda")
-    pc = cpu.init()
-    pg = gpu.load({k: v.cuda() for k, v in pc.state_dict().items()})
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 100)))
-    cc, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
-    cg, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.cuda())
-    rel = [_rel(lg.cpu(), lc)]
-    nxt = lc.argmax(-1)
-    for _ in range(3):
-        cc, lc = cpu.decode_step(pc, cc, nxt)
-        cg, lg = gpu.decode_step(pg, cg, nxt.cuda())
-        rel.append(_rel(lg.cpu(), lc))
+    out, failed = {}, []
+    for arch, (what, cut) in REFERENCE.items():
+        cfg = configs.get(arch).with_(vocab_size=512, dtype="float32", **cut)
+        cpu, gpu = build(cfg, device="cpu", seed=SEED), build(cfg, device="cuda")
+        pc = cpu.init()
+        pg = gpu.load({k: v.cuda() for k, v in pc.state_dict().items()})
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                                     (2, 100)))
+        cc, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
+        cg, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.cuda())
+        rel = [_rel(lg.cpu(), lc)]
         nxt = lc.argmax(-1)
-    emit("reference", cfg="llama2-7b widths cut to 2 layers, d_model 256, 2 heads of 128, "
-         "f32", prefill_then_decode_rel=rel, tol=1e-4)
-    if max(rel) >= 1e-4:
-        raise AssertionError(f"card and CPU paths disagree: {rel}")
+        for _ in range(3):
+            cc, lc = cpu.decode_step(pc, cc, nxt)
+            cg, lg = gpu.decode_step(pg, cg, nxt.cuda())
+            rel.append(_rel(lg.cpu(), lc))
+            nxt = lc.argmax(-1)
+        out[arch] = {"cfg": f"{arch} widths cut to {what}, f32, prompt 100",
+                     "prefill_then_decode_rel": rel}
+        if max(rel) >= 1e-4:
+            failed.append(arch)
+    emit("reference", tol=1e-4, **out)
+    if failed:
+        raise AssertionError(f"card and CPU paths disagree: {failed}")
 
 
-def phase_serve():
+def kernel_counters():
+    from repro_torch.kernels import flash_attention, ssd_scan, wkv6
+
+    return {"flash_attention_fwd": (flash_attention.flash_attention_fwd,
+                                    flash_attention.flash_attention_plain),
+            "ssd_scan_fwd": (ssd_scan.ssd_scan_fwd, ssd_scan.ssd_scan_plain),
+            "wkv6_fwd": (wkv6.wkv6_fwd, wkv6.wkv6_plain)}
+
+
+# Served at full width, one after the other: the launches each kernel must
+# make over one generate call of G decode steps.
+SERVED = {
+    "llama2-7b": lambda cfg, G: {"flash_attention_fwd": cfg.n_layers},
+    "zamba2-7b": lambda cfg, G: {"ssd_scan_fwd": cfg.n_layers,
+                                 "flash_attention_fwd": cfg.n_layers // cfg.attn_every},
+    "rwkv6-1.6b": lambda cfg, G: {"wkv6_fwd": cfg.n_layers * (G + 1)},
+}
+
+
+def phase_serve(arch: str) -> dict[str, int]:
     from repro_torch import configs
-    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
     from repro_torch.models import build
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = configs.get("llama2-7b")
+    cfg = configs.get(arch)
     B, P, G = 4, 512, 32
     model = build(cfg, device="cuda", seed=SEED)
     t0 = time.perf_counter()
@@ -249,27 +466,32 @@ def phase_serve():
         np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, P))).cuda()
 
     # The counted run: one generate call, nothing else.
+    counters = kernel_counters()
+    want = SERVED[arch](cfg, G)
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0
-    flash_attention_plain.calls = 0
+    for fwd, plain in counters.values():
+        fwd.launches = 0
+        plain.calls = 0
     t0 = time.perf_counter()
     out = engine.generate(tokens, steps=G)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches, plain_calls = flash_attention_fwd.launches, flash_attention_plain.calls
+    launches = {name: fwd.launches for name, (fwd, _) in counters.items()}
+    plain_calls = {name: plain.calls for name, (_, plain) in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.n_layers or plain_calls != 0:
-        raise AssertionError(f"prefill made {launches} kernel launches and {plain_calls} "
-                             f"plain calls; expected {cfg.n_layers} and 0")
+    expected = {name: want.get(name, 0) for name in counters}
+    if launches != expected or any(plain_calls.values()):
+        raise AssertionError(f"{arch}: generate made {launches} kernel launches and "
+                             f"{plain_calls} plain calls; expected {expected} and none")
     if out.shape != (B, G + 1) or out.min() < 0 or out.max() >= cfg.vocab_size:
-        raise AssertionError(f"bad generate output {tuple(out.shape)}")
+        raise AssertionError(f"{arch}: bad generate output {tuple(out.shape)}")
 
     t0 = time.perf_counter()
     out2 = engine.generate(tokens, steps=G)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     if not torch.equal(out, out2):
-        raise AssertionError("greedy decoding is not repeatable")
+        raise AssertionError(f"{arch}: greedy decoding is not repeatable")
 
     prefill_s = []
     for _ in range(3):
@@ -287,6 +509,7 @@ def phase_serve():
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) / G * 1e3
+    del cache, logits
 
     # Decode must continue prefill: prefill(t[:k]) + decode(t[k]) vs prefill(t[:k+1]).
     k = P - 1
@@ -294,22 +517,26 @@ def phase_serve():
     _, dec = model.decode_step(params, cache, tokens[:, k])
     _, par = model.prefill(params, model.init_cache(B, P + 1), tokens)
     rel = _rel(dec, par)
-    finite = bool(torch.isfinite(dec.float()).all() and torch.isfinite(par.float()).all())
+    ok = finite(dec.float(), par.float())
+    del cache
     emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          n_params=n_params, dtype="bfloat16", batch=B, prompt=P, gen=G,
          init_s=init_s, cold_generate_s=cold_s, warm_generate_s=warm_s,
          tok_per_s=B * G / warm_s, prefill_ms=min(prefill_s) * 1e3,
          prefill_ms_all=[s * 1e3 for s in prefill_s], decode_ms_per_token=decode_ms,
          decode_tok_per_s=B / decode_ms * 1e3, max_memory_allocated=peak,
-         flash_launches=launches, plain_calls=plain_calls,
-         decode_vs_prefill_rel=rel, logits_finite=finite, first_tokens=out[0, :8].tolist())
-    if not finite or rel >= 0.08:
-        raise AssertionError(f"decode/prefill mismatch at full width: rel={rel}")
-    phase_trace(model, params, tokens, P + G + 1)
+         launches=launches, plain_calls=plain_calls,
+         decode_vs_prefill_rel=rel, logits_finite=ok, first_tokens=out[0, :8].tolist())
+    if not ok or rel >= 0.08:
+        raise AssertionError(f"{arch}: decode/prefill mismatch at full width: rel={rel}")
+    phase_trace(arch, model, params, tokens, P + G + 1)
+    del engine, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_trace(model, params, tokens, max_len: int, steps: int = 8):
+def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
     """torch.profiler over one prefill and `steps` decode steps (warm): device
     time by kernel, and the device's idle share of each window's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -340,8 +567,9 @@ def phase_trace(model, params, tokens, max_len: int, steps: int = 8):
                       "idle_share": 1 - busy / wall_ms if kern else None,
                       "steps": 1 if label == "prefill" else steps,
                       "top": [{"kernel": n[:90], "ms": ms, "count": c} for n, ms, c in kern[:8]]}
-    emit("trace", note="device time from torch.profiler (CUPTI); profiler on, so wall "
-         "times exceed the serve phase's", **out)
+        del cache, logits
+    emit("trace", arch=arch, note="device time from torch.profiler (CUPTI); profiler on, "
+         "so wall times exceed the serve phase's", **out)
 
 
 def main() -> int:
@@ -357,22 +585,35 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    main_case = phase_kernels()
+    mains = {"flash_attention_fwd": phase_kernels(), "ssd_scan_fwd": phase_ssd_kernels(),
+             "wkv6_fwd": phase_wkv_kernels()}
     phase_reference()
-    launches = phase_serve()
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:110",
-        "launches": launches,
-        "max_abs_err": main_case["max_abs_err_o"],
-        "ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }], "seconds": time.perf_counter() - t_start}))
+    by_path = {arch: phase_serve(arch) for arch in SERVED}
+    sources = {
+        "flash_attention_fwd": ("flash_attention_fwd.cu", "flash_attention.py:110",
+                                "max_abs_err_o"),
+        "ssd_scan_fwd": ("ssd_scan_fwd.cu", "ssd_scan.py:77", "max_abs_err_y"),
+        "wkv6_fwd": ("wkv6_fwd.cu", "wkv6.py:76", "max_abs_err_y"),
+    }
+    kernels = []
+    for kname, (src, tpu, err_key) in sources.items():
+        main_case = mains[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": sum(counts[kname] for counts in by_path.values()),
+            "launches_by_path": {arch: counts[kname] for arch, counts in by_path.items()
+                                 if counts[kname]},
+            "max_abs_err": main_case[err_key],
+            "ms": main_case["kernel_ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels, "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

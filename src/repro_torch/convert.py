@@ -9,9 +9,12 @@
     ``params/`` subtree is taken and the optimizer state under ``opt/`` is
     not served),
 
-and returns a state dict for ``Model.load``: the same weights, same dtype,
-with the stacked layer axis unstacked into ``layers.<i>.``.  A missing or
-unexpected key, a shape or a dtype that does not match the config raises;
+and returns a state dict for ``Model.load``: the same weights, same dtypes
+(the f32 leaves of the SSM families stay f32 beside the model dtype), with
+every stacked layer axis unstacked (``layers/`` into ``layers.<i>.``,
+``ssm_layers/`` into ``ssm_layers.<i>.``) and the singleton stack axis of
+the hybrid's ``shared/`` block dropped.  A missing or unexpected key, a
+shape or a dtype that does not match the module the config builds raises;
 nothing is skipped.  So a checkpoint a JAX job wrote serves in torch: the
 paper's reconfiguration across a restart, here across frameworks.
 """
@@ -25,9 +28,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
-from repro_torch.models.transformer import Decoder
+from repro_torch.models.api import family_of
 
 _BF16 = "::bf16"
+_STACKED = ("layers", "ssm_layers")   # leading axis: one entry per layer
+_SINGLETON = ("shared",)              # leading axis of 1: one shared block
 
 
 def _bf16(bits: np.ndarray) -> torch.Tensor:
@@ -75,16 +80,22 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tenso
     state: dict[str, torch.Tensor] = {}
     for path, t in leaves.items():
         head, _, rest = path.partition("/")
-        if head == "layers" and rest:
+        name = rest.replace("/", ".")
+        if head in _STACKED and rest:
             if t.shape[0] != cfg.n_layers:
                 raise ValueError(f"{path}: leading axis {t.shape[0]} != n_layers "
                                  f"{cfg.n_layers}")
             for i in range(cfg.n_layers):
-                state[f"layers.{i}.{rest.replace('/', '.')}"] = t[i].clone()
+                state[f"{head}.{i}.{name}"] = t[i].clone()
+        elif head in _SINGLETON and rest:
+            if t.shape[0] != 1:
+                raise ValueError(f"{path}: leading axis {t.shape[0]} != 1")
+            state[f"{head}.{name}"] = t[0].clone()
         else:
             state[path.replace("/", ".")] = t
 
-    want = Decoder(cfg, "meta", nn.dtype_of(cfg.dtype)).state_dict()
+    module = family_of(cfg).module
+    want = module(cfg, "meta", nn.dtype_of(cfg.dtype)).state_dict()
     missing = sorted(set(want) - set(state))
     extra = sorted(set(state) - set(want))
     if missing or extra:
@@ -94,7 +105,7 @@ def params_from_jax_numpy(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tenso
         if tuple(t.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: shape {tuple(t.shape)} != {tuple(want[k].shape)}")
         if t.dtype != want[k].dtype:
-            raise ValueError(f"{k}: dtype {t.dtype} != config dtype {want[k].dtype}")
+            raise ValueError(f"{k}: dtype {t.dtype} != declared dtype {want[k].dtype}")
     return state
 
 

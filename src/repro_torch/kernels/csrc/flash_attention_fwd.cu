@@ -239,6 +239,7 @@ template <typename T>
 cudaError_t dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 64: return launch<T, 64>(p, B, stream);
+    case 112: return launch<T, 112>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
     case 256: return launch<T, 256>(p, B, stream);
     default: return cudaErrorInvalidValue;
@@ -249,7 +250,7 @@ cudaError_t dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
 
 // Shared memory a block takes at head dim D (-1 if D is not supported).
 extern "C" int flash_attention_fwd_smem_bytes(int D) {
-  return (D == 64 || D == 128 || D == 256) ? smem_bytes(D) : -1;
+  return (D == 64 || D == 112 || D == 128 || D == 256) ? smem_bytes(D) : -1;
 }
 
 // Plain C entry point (loaded with ctypes).  Strides are in elements; the

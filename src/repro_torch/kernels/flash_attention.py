@@ -20,7 +20,7 @@ import math
 
 import torch
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -128,8 +128,8 @@ def _check(q, k, v):
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
     """Attention forward, (o, lse).  q: (B,Sq,Hq,d); k, v: (B,Sk,Hkv,d).
 
-    On CUDA tensors this launches the Hopper kernel (head dim 64, 128 or
-    256; float32 or bfloat16; last dim contiguous, any other strides) on the
+    On CUDA tensors this launches the Hopper kernel (head dim 64, 112, 128
+    or 256; float32 or bfloat16; last dim contiguous, any other strides) on the
     current stream.  CPU tensors go to :func:`flash_attention_plain`.  Any
     other device raises."""
     if q.device.type == "cpu":

@@ -1,0 +1,156 @@
+"""Mamba-2 SSD chunked scan: the Hopper kernel and its plain PyTorch version.
+
+Port of the Pallas TPU kernel ``repro.kernels.ssd_scan`` (see
+``csrc/ssd_scan_fwd.cu`` for the design and what bounds it on the card).
+It computes what the model path ``repro.models.mamba2.ssd_chunked`` does,
+which is wider than the Pallas kernel: an initial state ``h0`` in, the last
+state ``h_last`` out, and any S (the last chunk is masked, where the Pallas
+wrapper asserts that the chunk divides S).
+
+Rounding follows the model path: ``xdt = x * dt`` is formed in x's dtype,
+``dA = dt * A`` in f32, every product and the state in f32, and y is cast
+to x's dtype.
+
+``ssd_scan_fwd`` dispatches by the device of its inputs: a CPU tensor goes
+to ``ssd_scan_plain``; a CUDA tensor launches the kernel or raises.  Each
+function counts its own runs in a plain integer attribute
+(``ssd_scan_fwd.launches``, ``ssd_scan_plain.calls``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+# (head dim P, state size N) pairs the kernel is instantiated for: zamba2-7b's.
+SHAPES = ((64, 64),)
+CHUNK = 64                       # the kernel's chunk; the plain version's default
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ssd_scan_plain(x, dt, A, B_, C, h0=None, *, chunk: int = CHUNK):
+    """Chunked SSD scan in torch ops, the twin of ``mamba2.ssd_chunked``.
+
+    x: (B,S,H,P); dt: (B,S,H) f32 post-softplus; A: (H,) f32 < 0; B_, C:
+    (B,S,N) shared by the heads; h0: (B,H,P,N) f32 or None.  Returns
+    (y (B,S,H,P) in x's dtype, h_last (B,H,P,N) f32).  A ragged last chunk
+    is padded with dt = 0 and x = B = C = 0, which leaves y and the state
+    unchanged."""
+    ssd_scan_plain.calls += 1
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    pad = -S % Q
+    dA = (dt * A[None, None, :]).float()                     # (B,S,H), <= 0
+    xdt = x * dt[..., None].to(x.dtype)
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        dA = F.pad(dA, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    m4 = mask[None, :, :, None]
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for c0 in range(0, S + pad, Q):
+        x_c = xdt[:, c0:c0 + Q].float()                       # (B,Q,H,P)
+        dA_c = dA[:, c0:c0 + Q]                               # (B,Q,H)
+        B_c = B_[:, c0:c0 + Q].float()                        # (B,Q,N)
+        C_c = C[:, c0:c0 + Q].float()
+        cum = torch.cumsum(dA_c, dim=1)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
+        # the masked half has diff > 0: never exponentiate it
+        L = torch.where(m4, torch.exp(torch.where(m4, diff, 0.0)), 0.0)
+        cb = torch.einsum("bin,bjn->bij", C_c, B_c)
+        y_intra = torch.einsum("bijh,bjhp->bihp", cb[..., None] * L, x_c)
+        decay_end = torch.exp(cum[:, -1:, :] - cum)           # (B,Q,H)
+        s_c = torch.einsum("bjh,bjhp,bjn->bhpn", decay_end, x_c, B_c)
+        y_inter = torch.einsum("bin,bhpn->bihp", C_c, h) * torch.exp(cum)[..., None]
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + s_c
+        ys.append((y_intra + y_inter).to(x.dtype))
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+ssd_scan_plain.calls = 0
+
+
+@functools.cache
+def _kernel_fn():
+    from repro_torch.kernels import build
+
+    fn = build.load("ssd_scan_fwd").ssd_scan_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, dt, A, B_, C, h0):
+    if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or B_.ndim != 3 or C.ndim != 3:
+        raise ValueError(f"ssd_scan_fwd takes x (B,S,H,P), dt (B,S,H), A (H,), "
+                         f"B_/C (B,S,N); got {tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(A.shape)}, {tuple(B_.shape)}, {tuple(C.shape)}")
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    if (tuple(dt.shape) != (Bb, S, H) or tuple(A.shape) != (H,)
+            or tuple(B_.shape) != (Bb, S, N) or tuple(C.shape) != (Bb, S, N)):
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B_ {tuple(B_.shape)}, C {tuple(C.shape)}")
+    if (P, N) not in SHAPES:
+        raise ValueError(f"(head dim, state) = {(P, N)} not supported by the kernel "
+                         f"(takes {SHAPES})")
+    if x.dtype not in _DTYPE_CODE or B_.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"x, B_, C must share one dtype, float32 or bfloat16; got "
+                         f"{x.dtype}, {B_.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"dt and A must be float32; got {dt.dtype}, {A.dtype}")
+    tensors = [x, dt, A, B_, C] + ([h0] if h0 is not None else [])
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"inputs on different devices: {[str(t.device) for t in tensors]}")
+    if any(t.stride(-1) != 1 for t in (x, B_, C)):
+        raise ValueError("the last dim of x, B_ and C must be contiguous")
+    if h0 is not None and (tuple(h0.shape) != (Bb, H, P, N) or h0.dtype != torch.float32
+                           or not h0.is_contiguous()):
+        raise ValueError(f"h0 must be contiguous float32 {(Bb, H, P, N)}; got "
+                         f"{h0.dtype} {tuple(h0.shape)}")
+    if Bb == 0 or S == 0 or H == 0:
+        raise ValueError(f"empty scan: x {tuple(x.shape)}")
+
+
+def ssd_scan_fwd(x, dt, A, B_, C, h0=None):
+    """SSD scan forward, (y, h_last).  Shapes as :func:`ssd_scan_plain`.
+
+    On CUDA tensors this launches the Hopper kernel on the current stream
+    (x, B_, C float32 or bfloat16 with their last dim contiguous, any other
+    strides; dt, A float32; (P, N) in ``SHAPES``).  CPU tensors go to
+    :func:`ssd_scan_plain`, in the kernel's chunks of ``CHUNK``.  Any other
+    device raises."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B_, C, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_fwd runs on cuda or cpu tensors, not {x.device}")
+    _check(x, dt, A, B_, C, h0)
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    A = A.contiguous()
+    y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
+    h_last = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    fn = _kernel_fn()
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C.data_ptr(),
+                h0.data_ptr() if h0 is not None else None, y.data_ptr(),
+                h_last.data_ptr(), Bb, S, H, P, N,
+                *x.stride()[:3], *dt.stride(), *B_.stride()[:2], *C.stride()[:2],
+                *y.stride()[:2], _DTYPE_CODE[x.dtype],
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_fwd kernel launch failed: cudaError {rc}")
+    ssd_scan_fwd.launches += 1
+    return y, h_last
+
+
+ssd_scan_fwd.launches = 0

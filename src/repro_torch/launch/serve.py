@@ -1,7 +1,10 @@
 """Serving launcher for the port: batched greedy decoding on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --full \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --full \
         --batch 4 --prompt-len 512 --gen 32
+
+Every arch the port registers serves (``repro_torch.configs.base.ARCHS``:
+the dense decoders, zamba2-7b and rwkv6-1.6b).
 
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain path) and ``--seed`` (weights and prompts).

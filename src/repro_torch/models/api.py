@@ -1,8 +1,10 @@
 """Model API for the port: ``build(cfg, device=None, dtype=None, seed=0)``.
 
-The torch twin of ``repro.models.api`` for the dense decoder family:
+The torch twin of ``repro.models.api`` for serving, dispatched by family as
+the reference dispatches (dense decoder, hybrid Mamba-2 + shared attention,
+RWKV-6):
 
-    init() -> params (a Decoder module, weights drawn on ``device`` from ``seed``)
+    init() -> params (an nn.Module, weights drawn on ``device`` from ``seed``)
     load(state) -> params (weights from ``repro_torch.convert``)
     init_cache(batch, max_len) -> cache
     prefill(params, cache, tokens (B,S)) -> (cache, logits (B,V))
@@ -15,11 +17,12 @@ caller asks for ``device="cpu"``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import nn, transformer
+from repro_torch.models import hybrid, nn, rwkv_model, transformer
 
 
 def resolve_device(device) -> torch.device:
@@ -31,22 +34,42 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@dataclass(frozen=True)
+class Family:
+    """One family's functions: its parameter module and serving steps."""
+    module: type                  # module(cfg, device, dtype), with reset_parameters(gen)
+    init_cache: Callable          # (cfg, batch, max_len, *, device, dtype) -> cache
+    prefill: Callable             # (params, cache, tokens, cfg) -> (cache, logits)
+    decode_step: Callable         # (params, cache, tokens, cfg) -> (cache, logits)
+
+
+DECODER = Family(transformer.Decoder, transformer.decoder_init_cache,
+                 transformer.decoder_prefill, transformer.decoder_decode_step)
+HYBRID = Family(hybrid.Hybrid, hybrid.hybrid_init_cache, hybrid.hybrid_prefill,
+                hybrid.hybrid_decode_step)
+RWKV = Family(rwkv_model.RWKV, rwkv_model.rwkv_init_cache, rwkv_model.rwkv_prefill,
+              rwkv_model.rwkv_decode_step)
+
 _LATER = (("n_experts", "MoE: ROADMAP A15"), ("mla", "MLA: ROADMAP A15"),
-          ("mtp_depth", "MTP: ROADMAP A15"), ("attn_every", "hybrid: ROADMAP A16"),
-          ("ssm_state", "SSM: ROADMAP A16"), ("rwkv", "RWKV-6: ROADMAP A17"),
-          ("enc_layers", "encoder-decoder: ROADMAP A18"))
+          ("mtp_depth", "MTP: ROADMAP A15"), ("enc_layers", "encoder-decoder: ROADMAP A18"))
 
 
-def _unported(cfg: ModelConfig) -> str | None:
-    """Which later slice a config needs, or None for the dense decoder."""
+def family_of(cfg: ModelConfig) -> Family:
+    """The family that serves ``cfg``; raises for the ones still to port."""
     for flag, item in _LATER:
         if getattr(cfg, flag):
-            return item
+            raise NotImplementedError(f"{cfg.name}: not ported yet ({item})")
     if cfg.frontend != "none":
-        return f"{cfg.frontend} frontend: ROADMAP A18"
-    if cfg.family != "dense":
-        return f"family {cfg.family!r}: ROADMAP A15-A18"
-    return None
+        raise NotImplementedError(f"{cfg.name}: not ported yet ({cfg.frontend} "
+                                  f"frontend: ROADMAP A18)")
+    if cfg.family == "hybrid":
+        return HYBRID
+    if cfg.family == "ssm" and cfg.rwkv:
+        return RWKV
+    if cfg.family == "dense":
+        return DECODER
+    raise NotImplementedError(f"{cfg.name}: not ported yet (family {cfg.family!r}: "
+                              f"ROADMAP A15-A18)")
 
 
 @dataclass(frozen=True)
@@ -56,39 +79,45 @@ class Model:
     dtype: torch.dtype
     seed: int = 0
 
-    def init(self) -> transformer.Decoder:
+    @property
+    def family(self) -> Family:
+        return family_of(self.cfg)
+
+    def init(self):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
-        params = transformer.Decoder(self.cfg, self.device, self.dtype)
+        params = self.family.module(self.cfg, self.device, self.dtype)
         params.reset_parameters(gen)
         return params.eval()
 
-    def load(self, state: dict[str, torch.Tensor]) -> transformer.Decoder:
+    def load(self, state: dict[str, torch.Tensor]):
         """Weights from a state dict (see ``repro_torch.convert``); every key
-        must be present and match in shape and dtype."""
-        params = transformer.Decoder(self.cfg, self.device, self.dtype)
+        must be present and match in shape and in the dtype the module
+        declares for it (the model dtype, or f32 for the leaves the reference
+        keeps in f32)."""
+        params = self.family.module(self.cfg, self.device, self.dtype)
+        want = params.state_dict()
         for name, t in state.items():
-            if t.dtype != self.dtype:
-                raise ValueError(f"{name}: dtype {t.dtype}, model is {self.dtype}")
+            if name in want and t.dtype != want[name].dtype:
+                raise ValueError(f"{name}: dtype {t.dtype}, module declares "
+                                 f"{want[name].dtype}")
         params.load_state_dict(state, strict=True)
         return params.eval()
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return transformer.decoder_init_cache(self.cfg, batch, max_len,
-                                              device=self.device, dtype=self.dtype)
+        return self.family.init_cache(self.cfg, batch, max_len, device=self.device,
+                                      dtype=self.dtype)
 
     @torch.no_grad()
     def prefill(self, params, cache: dict, tokens: torch.Tensor):
-        return transformer.decoder_prefill(params, cache, tokens, self.cfg)
+        return self.family.prefill(params, cache, tokens, self.cfg)
 
     @torch.no_grad()
     def decode_step(self, params, cache: dict, tokens: torch.Tensor):
-        return transformer.decoder_decode_step(params, cache, tokens, self.cfg)
+        return self.family.decode_step(params, cache, tokens, self.cfg)
 
 
 def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0) -> Model:
-    why = _unported(cfg)
-    if why:
-        raise NotImplementedError(f"{cfg.name}: not ported yet ({why})")
+    family_of(cfg)
     dtype = nn.dtype_of(cfg.dtype) if dtype is None else dtype
     return Model(cfg, resolve_device(device), dtype, seed)

@@ -1,7 +1,8 @@
 """Core neural-net primitives: the torch twins of ``repro.models.nn``.
 
 Plain functions on tensors, with the reference's conventions kept exactly:
-rmsnorm scales by ``(1 + gamma)`` in f32; the gated FFN splits ``h`` into
+rmsnorm scales by ``(1 + gamma)`` in f32; layernorm normalises in f32 and
+casts back to the input's dtype; the gated FFN splits ``h`` into
 ``(u, g)`` and returns ``u * act(g)``; GELU is the tanh approximation
 (``jax.nn.gelu``'s default); RoPE rotates split halves with f32 angles.
 Weights are stored (in, out) as in the reference, so a layer is ``x @ w``.
@@ -13,11 +14,18 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn as tnn
 
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
+
+
+def param(*shape, device, dtype) -> tnn.Parameter:
+    """An uninitialised, frozen parameter (serving never takes gradients)."""
+    return tnn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                         requires_grad=False)
 
 
 # ---------------------------------------------------------------------------
@@ -28,6 +36,12 @@ def normal_(w: torch.Tensor, scale: float, gen: torch.Generator) -> torch.Tensor
     """Fill ``w`` in place with N(0, 1) * scale drawn in f32."""
     z = torch.randn(w.shape, generator=gen, device=w.device, dtype=torch.float32)
     return w.copy_(z.mul_(scale))
+
+
+def uniform_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Fill ``w`` in place with U[0, 1) drawn in f32."""
+    z = torch.rand(w.shape, generator=gen, device=w.device, dtype=torch.float32)
+    return w.copy_(z)
 
 
 def dense_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -48,6 +62,15 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + gamma.float())).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -24,11 +24,6 @@ from repro_torch.models import nn
 from repro_torch.models.attention import attention, decode_attention
 
 
-def _param(*shape, device, dtype) -> tnn.Parameter:
-    return tnn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                         requires_grad=False)
-
-
 class Attention(tnn.Module):
     """GQA projections: wq (D, Hq*hd), wk/wv (D, Hkv*hd), wo (Hq*hd, D),
     and bq/bk/bv when ``cfg.qkv_bias``."""
@@ -38,14 +33,14 @@ class Attention(tnn.Module):
         D, hd = cfg.d_model, cfg.resolved_head_dim
         Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
         kw = dict(device=device, dtype=dtype)
-        self.wq = _param(D, Hq * hd, **kw)
-        self.wk = _param(D, Hkv * hd, **kw)
-        self.wv = _param(D, Hkv * hd, **kw)
-        self.wo = _param(Hq * hd, D, **kw)
+        self.wq = nn.param(D, Hq * hd, **kw)
+        self.wk = nn.param(D, Hkv * hd, **kw)
+        self.wv = nn.param(D, Hkv * hd, **kw)
+        self.wo = nn.param(Hq * hd, D, **kw)
         if cfg.qkv_bias:
-            self.bq = _param(Hq * hd, **kw)
-            self.bk = _param(Hkv * hd, **kw)
-            self.bv = _param(Hkv * hd, **kw)
+            self.bq = nn.param(Hq * hd, **kw)
+            self.bk = nn.param(Hkv * hd, **kw)
+            self.bv = nn.param(Hkv * hd, **kw)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -59,8 +54,8 @@ class FFN(tnn.Module):
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         in_w = 2 * cfg.d_ff if cfg.act in ("swiglu", "geglu") else cfg.d_ff
-        self.wi = _param(cfg.d_model, in_w, device=device, dtype=dtype)
-        self.wo = _param(cfg.d_ff, cfg.d_model, device=device, dtype=dtype)
+        self.wi = nn.param(cfg.d_model, in_w, device=device, dtype=dtype)
+        self.wo = nn.param(cfg.d_ff, cfg.d_model, device=device, dtype=dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.dense_init_(self.wi, gen)
@@ -72,8 +67,8 @@ class Block(tnn.Module):
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
-        self.ln1 = _param(cfg.d_model, device=device, dtype=dtype)
-        self.ln2 = _param(cfg.d_model, device=device, dtype=dtype)
+        self.ln1 = nn.param(cfg.d_model, device=device, dtype=dtype)
+        self.ln2 = nn.param(cfg.d_model, device=device, dtype=dtype)
         self.attn = Attention(cfg, device, dtype)
         self.mlp = FFN(cfg, device, dtype)
 
@@ -90,10 +85,10 @@ class Decoder(tnn.Module):
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         self.cfg = cfg
-        self.emb = _param(cfg.vocab_size, cfg.d_model, device=device, dtype=dtype)
-        self.ln_f = _param(cfg.d_model, device=device, dtype=dtype)
+        self.emb = nn.param(cfg.vocab_size, cfg.d_model, device=device, dtype=dtype)
+        self.ln_f = nn.param(cfg.d_model, device=device, dtype=dtype)
         if not cfg.tie_embeddings:
-            self.head = _param(cfg.d_model, cfg.vocab_size, device=device, dtype=dtype)
+            self.head = nn.param(cfg.d_model, cfg.vocab_size, device=device, dtype=dtype)
         self.layers = tnn.ModuleList(Block(cfg, device, dtype)
                                      for _ in range(cfg.n_layers))
 

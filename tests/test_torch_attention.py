@@ -165,6 +165,7 @@ def test_wrapper_dispatches_by_device():
     (1, 200, 200, 8, 1, 256, 0),
     (2, 96, 1000, 5, 5, 64, 0),
     (1, 700, 700, 6, 2, 128, 128),
+    (2, 333, 333, 4, 4, 112, 0),     # zamba2's head dim
 ])
 def test_kernel_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, d, window, dtype,
                                       cuda_device):

@@ -30,6 +30,23 @@ def test_rmsnorm(shape):
                                np.asarray(jnn.rmsnorm(jx, jg, 1e-5)), **TOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 5, 64), (3, 48)])
+def test_layernorm(shape):
+    rng = _rng(5)
+    x = rng.normal(1, 2, shape).astype(np.float32)
+    g = rng.normal(1, 0.5, shape[-1:]).astype(np.float32)
+    b = rng.normal(0, 0.5, shape[-1:]).astype(np.float32)
+    (jx, jg, jb), (tx, tg, tb) = _pair(x, g, b)
+    np.testing.assert_allclose(tnn.layernorm(tx, tg, tb, 1e-5).numpy(),
+                               np.asarray(jnn.layernorm(jx, jg, jb, 1e-5)), **TOL)
+
+
+def test_layernorm_keeps_bf16_with_f32_gains():
+    x = torch.from_numpy(_rng().normal(0, 1, (4, 32)).astype(np.float32)).bfloat16()
+    out = tnn.layernorm(x, torch.ones(32), torch.zeros(32))
+    assert out.dtype == torch.bfloat16
+
+
 def test_rmsnorm_keeps_bf16():
     x = torch.from_numpy(_rng().normal(0, 1, (4, 32)).astype(np.float32)).bfloat16()
     assert tnn.rmsnorm(x, torch.zeros(32, dtype=torch.bfloat16)).dtype == torch.bfloat16

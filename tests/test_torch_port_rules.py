@@ -17,7 +17,7 @@ from repro_torch import configs
 from repro_torch.models import build
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-PORTED = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b"]
+PORTED = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b"]
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -46,6 +46,15 @@ def test_build_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         build(cfg, device="cuda")
     assert build(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_build_without_card_raises_for_ssm_families(arch, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg)
+    assert build(configs.get_reduced(arch), device="cpu").device.type == "cpu"
 
 
 def test_launcher_defaults_to_cuda(monkeypatch):

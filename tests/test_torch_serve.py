@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package on the same weights.
 
-Reduced llama2-7b, gemma-2b, gpt2-1.5b and starcoder2-3b are initialised
-by JAX, carried across with ``repro_torch.convert`` and served by both:
+Reduced llama2-7b, gemma-2b, gpt2-1.5b, starcoder2-3b, zamba2-7b (hybrid:
+Mamba-2 and a shared attention block) and rwkv6-1.6b are initialised by
+JAX, carried across with ``repro_torch.convert`` and served by both:
 prefill and decode logits must match (f32 at 1e-4 relative, bf16 at 3e-2,
 the bf16 bound of tests/test_kernels.py), greedy tokens must be equal in
 f32, and the port's decode must match its own prefill (rel < 0.08, the
@@ -23,7 +24,7 @@ from repro_torch.convert import params_from_jax_numpy, read_checkpoint
 from repro_torch.models import build
 from repro_torch.serve.engine import ServeEngine
 
-ARCHS = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b"]
+ARCHS = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b"]
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -166,6 +167,85 @@ def test_converter_rejects_mismatch(breakage, pair):
         params_from_jax_numpy(tree, tm.cfg)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_checkpoint_round_trip_ssm_families(arch, dtype, pair, tmp_path):
+    """A CheckpointManager arrays.npz of the stacked ssm_layers/ and shared/
+    subtrees (hybrid) and of the f32 leaves beside the model dtype carries
+    across exactly and serves."""
+    cfg, jm, jp, tm, tp = pair(arch, dtype)
+    CheckpointManager(tmp_path, async_save=False).save(3, jp)
+    flat = read_checkpoint(tmp_path / "step_000000003")
+    state = params_from_jax_numpy(flat, tm.cfg)
+    want = tp.state_dict()
+    assert set(state) == set(want)
+    for k, v in want.items():
+        assert state[k].dtype == v.dtype and torch.equal(state[k], v), k
+    f32 = {"zamba2-7b": "ssm_layers.0.mixer.A_log", "rwkv6-1.6b": "layers.0.tm.u"}[arch]
+    assert state[f32].dtype == torch.float32
+    if arch == "zamba2-7b":
+        assert state["shared.attn.wq"].shape == (cfg.d_model, cfg.n_heads * cfg.head_dim)
+        assert f"ssm_layers.{cfg.n_layers - 1}.ln" in state
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 8)).long()
+    _, a = tm.prefill(tm.load(state), tm.init_cache(2, 8), toks)
+    _, b = tm.prefill(tp, tm.init_cache(2, 8), toks)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("breakage", ["missing", "extra", "shape", "f32_leaf_dtype",
+                                      "shared_axis"])
+def test_converter_rejects_mismatch_hybrid(breakage, pair):
+    cfg, _, jp, tm, _ = pair("zamba2-7b", "bfloat16")
+    tree = jax.tree.map(np.asarray, jp)
+    mixer = tree["ssm_layers"]["mixer"]
+    if breakage == "missing":
+        del mixer["dt_bias"]
+    elif breakage == "extra":
+        tree["shared"]["lora"] = np.zeros((1, 2), np.float32)
+    elif breakage == "shape":
+        mixer["conv_w"] = mixer["conv_w"][:, :-1]
+    elif breakage == "f32_leaf_dtype":
+        mixer["A_log"] = mixer["A_log"].astype(jnp.bfloat16)
+    else:
+        tree["shared"]["ln1"] = np.concatenate([tree["shared"]["ln1"]] * 2)
+    with pytest.raises((KeyError, ValueError)):
+        params_from_jax_numpy(tree, tm.cfg)
+
+
+def test_load_checks_each_leaf_against_its_declared_dtype(pair):
+    """bf16 weights beside f32 leaves load; an f32 leaf in bf16 is refused."""
+    _, _, _, tm, tp = pair("rwkv6-1.6b", "bfloat16")
+    state = tp.state_dict()
+    assert state["layers.0.tm.wr"].dtype == torch.bfloat16
+    assert state["layers.0.ln1_g"].dtype == torch.float32
+    tm.load(state)
+    bad = dict(state, **{"layers.0.tm.w0": state["layers.0.tm.w0"].bfloat16()})
+    with pytest.raises(ValueError, match="w0"):
+        tm.load(bad)
+
+
+def test_hybrid_prompt_not_multiple_of_ssm_chunk(pair):
+    """Reduced zamba2 with a 24-token prompt against ssm_chunk 16: the port
+    masks its last chunk, the reference takes one chunk of 24; logits, the
+    SSM states and conv windows it caches, and three decode steps agree."""
+    cfg, jm, jp, tm, tp = pair("zamba2-7b", "float32")
+    S = 24
+    assert cfg.ssm_chunk == 16 and S % cfg.ssm_chunk
+    toks = _tokens(cfg.vocab_size, 2, S, seed=4)
+    jc, jl = jax.jit(jm.prefill)(jp, jm.init_cache(2, 32), {"tokens": jnp.asarray(toks)})
+    tc, tl = tm.prefill(tp, tm.init_cache(2, 32), torch.from_numpy(toks).long())
+    assert _rel(tl, _np(jl)) < 1e-4
+    assert _rel(tc["ssm"]["ssm"], _np(jc["ssm"]["ssm"])) < 1e-4
+    assert _rel(tc["ssm"]["conv"], _np(jc["ssm"]["conv"])) < 1e-5
+    assert _rel(tc["attn"]["k"], _np(jc["attn"]["k"])) < 1e-4
+    for _ in range(3):
+        nxt = np.argmax(_np(jl), -1).astype(np.int32)
+        jc, jl = jax.jit(jm.decode_step)(jp, jc, jnp.asarray(nxt))
+        tc, tl = tm.decode_step(tp, tc, torch.from_numpy(nxt).long())
+        assert _rel(tl, _np(jl)) < 1e-4
+    assert _rel(tc["ssm"]["ssm"], _np(jc["ssm"]["ssm"])) < 1e-4
+
+
 @pytest.mark.gpu
 def test_serve_on_card_matches_cpu(cuda_device):
     """The kernel path on the card and the plain path on the CPU serve the
@@ -181,3 +261,32 @@ def test_serve_on_card_matches_cpu(cuda_device):
     _, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
     _, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(cuda_device))
     assert _rel(lg.cpu(), lc) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_ssm_families_on_card_match_cpu(arch, cuda_device):
+    """The kernel paths (SSD scan and flash attention at head dim 112, or
+    WKV6) on the card and the plain paths on the CPU serve the same logits,
+    prefill and decode, f32."""
+    cut = {"zamba2-7b": dict(n_layers=4, d_model=256, n_heads=2, n_kv_heads=2,
+                             head_dim=112, d_ff=512, ssm_state=64, ssm_head_dim=64,
+                             attn_every=2),
+           "rwkv6-1.6b": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
+                              d_ff=512, rwkv_head_dim=64, rwkv_lora_decay=16,
+                              rwkv_lora_mix=16)}[arch]
+    cfg = configs.get(arch).with_(vocab_size=512, dtype="float32", **cut)
+    cpu = build(cfg, device="cpu")
+    gpu = build(cfg, device=cuda_device)
+    pc = cpu.init()
+    pg = gpu.load({k: v.to(cuda_device) for k, v in pc.state_dict().items()})
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 100)).long()
+    cc, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
+    cg, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(cuda_device))
+    assert _rel(lg.cpu(), lc) < 1e-4
+    nxt = lc.argmax(-1)
+    for _ in range(3):
+        cc, lc = cpu.decode_step(pc, cc, nxt)
+        cg, lg = gpu.decode_step(pg, cg, nxt.to(cuda_device))
+        assert _rel(lg.cpu(), lc) < 1e-4
+        nxt = lc.argmax(-1)
