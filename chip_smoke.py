@@ -8,14 +8,17 @@ exits nonzero without printing a result:
 
   device    card name and count, nvidia-smi name and power limit
   build     nvcc build of every kernel source for sm_90a (ptxas report,
-            seconds, shared memory per block)
+            seconds, shared memory per block; flash for both dtypes)
   kernels   each Hopper kernel against its plain PyTorch version on the
             same inputs, at its serving path's shape and around it, with
-            kernel / plain (/ library) times by CUDA events and the bound:
+            kernel / plain (/ library) times by CUDA events and the bound
+            (flash and SDPA as CUDA-graph replays, device time only; the
+            eager time, which includes the host's, beside them):
             flash_attention_fwd: o held per row, max|Δ| of a row over
               max|plain| of that row, at f32 2e-4 and bf16 3e-2 (the bounds
               of tests/test_kernels.py); lse, f32 on both sides for every
-              input dtype, at 2e-4 absolute; SDPA as the library yardstick;
+              input dtype, at 2e-4 absolute; SDPA as the library yardstick,
+              and kernel_vs_library = kernel ms / SDPA ms;
             ssd_scan_fwd: y held at max|Δ| / max|plain| <= f32 2e-5, bf16
               3e-2, h_last at 2e-5 relative (tests/test_kernels.py:73);
             wkv6_fwd: y and S_last at 2e-5 relative (tests/test_kernels.py:88)
@@ -33,7 +36,8 @@ exits nonzero without printing a result:
             ms/token, tok/s, peak memory; decode-vs-prefill at full width
             (rel < 0.08, as tests/test_models_smoke.py)
   trace     per served model: torch.profiler over one prefill and 8 decode
-            steps, device time by kernel and the device's idle share
+            steps, device time by kernel (the top 8, and each port kernel
+            with its share of the busy time) and the device's idle share
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -66,17 +70,49 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of one call, by CUDA events around `reps` calls."""
-    for _ in range(warmup):
+def cuda_ms(fn, reps: int, warmup: int = 2, warm_s: float = 0.05) -> float:
+    """Mean device time of one call, by CUDA events around `reps` calls, after
+    at least `warmup` calls and `warm_s` seconds of them (an idle card's
+    clocks take a while to rise: without this the first case timed read 30%
+    above its device time in the profiler trace)."""
+    t0, n = time.perf_counter(), 0
+    while n < warmup or time.perf_counter() - t0 < warm_s:
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        n += 1
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int, warm_s: float = 0.05) -> float:
+    """Mean device time of one call, by CUDA events around the replay of one
+    CUDA graph of `reps` calls, so the host's cost per call (about 0.04 ms
+    for the flash wrapper, as much for an SDPA call) is not timed: eager
+    back-to-back calls of a 0.05 ms function measure the host."""
+    for _ in range(2):
+        fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        g.replay()
+        torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    t1.synchronize()
+    del g
+    # cuBLAS keeps a workspace per stream: the capture stream's stayed
+    # allocated and added 64 MiB to every served model's peak memory.
+    torch._C._cuda_clearCublasWorkspaces()
     return t0.elapsed_time(t1) / reps
 
 
@@ -157,11 +193,13 @@ def phase_build():
         fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
         return fn
 
-    fa = smem("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 1)
+    fa = smem("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 2)
     ssd = smem("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 2)
     wkv = smem("wkv6_fwd", "wkv6_fwd_smem_bytes", 1)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         smem_bytes={"flash_attention_fwd": {d: fa(d) for d in HEAD_DIMS},
+         smem_bytes={"flash_attention_fwd": {dt: {d: fa(d, code) for d in HEAD_DIMS}
+                                             for dt, code in (("bfloat16", 1),
+                                                              ("float32", 0))},
                      "ssd_scan_fwd": {f"P={p},N={n}": ssd(p, n) for p, n in SHAPES},
                      "wkv6_fwd": {d: wkv(d) for d in WKV_DIMS}},
          libs={n: {"path": str(b.path.relative_to(Path(__file__).resolve().parent)),
@@ -171,10 +209,14 @@ def phase_build():
                for n, b in built.items()})
 
 
-# (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype); the first is the
-# serving path's shape (llama2-7b prefill, batch 4, prompt 512).
+# (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype[, packed]); the first
+# is the serving path's shape (llama2-7b prefill, batch 4, prompt 512).
+# packed: q, k, v are strided views of one (B, S, 3, H, d) buffer.
 CASES = [
     ("llama2-7b prefill", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16),
+    ("packed (B,S,3,H,d) views", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16, True),
+    ("qwen2-72b GQA 64:8", 4, 512, 512, 64, 8, 128, True, 0, torch.bfloat16),
+    ("ragged S=17", 4, 17, 17, 32, 32, 128, True, 0, torch.bfloat16),
     ("llama2-7b S=2048", 4, 2048, 2048, 32, 32, 128, True, 0, torch.bfloat16),
     ("llama2-7b S=4096", 4, 4096, 4096, 32, 32, 128, True, 0, torch.bfloat16),
     ("gemma-2b MQA d=256", 4, 512, 512, 8, 1, 256, True, 0, torch.bfloat16),
@@ -197,11 +239,15 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, failed = [], []
-    for i, (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dt) in enumerate(CASES):
+    for i, (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dt, *packed) in enumerate(CASES):
         main = i == 0
         q = torch.randn((B, Sq, Hq, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
         v = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
+        if packed:
+            buf = torch.stack((q, k, v), dim=2)
+            q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+            del buf
         kw = dict(causal=causal, window=window)
         o, lse = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -213,8 +259,9 @@ def phase_kernels():
         err_lse = (lse - plse).abs().max().item()
         ok = row_rel_o <= tol and err_lse <= TOL_LSE and finite(o, lse)
         del d_o
-        reps = 20 if main else 5
-        kernel_ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), reps)
+        reps = 50 if main else 10
+        kernel_ms_eager = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), reps)
+        kernel_ms = graph_ms(lambda: flash_attention_fwd(q, k, v, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
                            5 if main else 1, warmup=1)
         # SDPA on the same inputs, timed as a yardstick only: is_causal where
@@ -224,15 +271,17 @@ def phase_kernels():
         plain_mask = not window and (Sq == Sk or not causal)
         sdpa_kw = (dict(is_causal=causal) if plain_mask
                    else dict(attn_mask=band_mask(Sq, Sk, causal, window)))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=Hq != Hkv, **sdpa_kw), reps)
         bms, by, flops, nbytes = bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dt)
         row = dict(case=label, B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, d=d, causal=causal,
                    window=window, dtype=str(dt).removeprefix("torch."), tol_o_row=tol,
                    tol_lse=TOL_LSE, row_rel_err_o=row_rel_o, max_abs_err_o=err_o,
-                   max_abs_err_lse=err_lse, ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms,
+                   max_abs_err_lse=err_lse, ok=ok, kernel_ms=kernel_ms,
+                   kernel_ms_eager=kernel_ms_eager, plain_ms=plain_ms,
+                   library_ms=library_ms, kernel_vs_library=kernel_ms / library_ms,
                    library="sdpa is_causal" if plain_mask else "sdpa attn_mask",
+                   packed=bool(packed),
                    bound_ms=bms, bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
                    tflops=flops / kernel_ms / 1e9)
         rows.append(row)
@@ -536,9 +585,16 @@ def phase_serve(arch: str) -> dict[str, int]:
     return launches
 
 
+# Device-side names of the port's kernels, as the profiler lists them.
+PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "ssd_fwd_kernel",
+                     "wkv6_fwd_kernel")
+
+
 def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
     """torch.profiler over one prefill and `steps` decode steps (warm): device
-    time by kernel, and the device's idle share of each window's wall time."""
+    time by kernel (the top 8, and each of the port's kernels with its share
+    of the busy time), and the device's idle share of each window's wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -566,7 +622,11 @@ def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
         out[label] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms if kern else None,
                       "steps": 1 if label == "prefill" else steps,
-                      "top": [{"kernel": n[:90], "ms": ms, "count": c} for n, ms, c in kern[:8]]}
+                      "top": [{"kernel": n[:90], "ms": ms, "count": c} for n, ms, c in kern[:8]],
+                      "port_kernels": [{"kernel": n[:90], "ms": ms, "count": c,
+                                        "share_of_busy": ms / busy}
+                                       for n, ms, c in kern if any(
+                                           t in n for t in PORT_KERNEL_NAMES)]}
         del cache, logits
     emit("trace", arch=arch, note="device time from torch.profiler (CUPTI); profiler on, "
          "so wall times exceed the serve phase's", **out)

@@ -13,24 +13,58 @@
 //   * ragged lengths: the last q and k tiles are masked here, where the
 //     Pallas wrapper asserts that the blocks divide the lengths;
 //   * layout: (B,S,H,d) is read in place through its strides, no transposes;
-//   * it also writes lse = m + log(l) (f32, (B,Hq,Sq)) for the backward.
+//   * it also writes lse = m + log(l) (natural log, f32, (B,Hq,Sq)).
 //
-// Design (simple first): one block of 256 threads per (q tile of 64 rows,
-// q head, batch).  The block stages its Q tile in shared memory as f32 and
-// walks the k tiles of its band [lo, hi) only; tiles wholly outside the
-// causal/window band are never loaded.  For each k tile it stages K, forms
-// the 64x64 scores with FMA loops (each thread owns 4 rows x 4 columns),
-// masks the ragged edge and the band, updates the row max and sum in the
-// log2 domain, writes P to shared memory, then stages V in the same buffer
-// and accumulates P.V (each thread owns 4 rows x d/16 columns in registers).
+// What bounds it on the card.  At the llama2-7b prefill shape (B 4, S 512,
+// 32 heads, d 128, causal, bf16) the kernel must move about 67.4 MB of
+// q/k/v/o/lse, 0.020 ms at 3.35 TB/s, and do 8.6 GFLOP over the causal band,
+// 0.0087 ms at 989 TFLOP/s: the bytes bind.  From S of about 2048 up the
+// products bind instead.  The design below reads q, k, v once per 64-row q
+// tile and keeps S, P and O on chip; on an H100 SXM at 700 W it takes about
+// 0.067 ms at that shape (3.3x the bound, 2x SDPA) and about 220 TFLOP/s at
+// S = 4096 (SDPA: about 550).
 //
-// What bounds it on the card: for llama2-7b prefill (B=4, S=512, 32 heads,
-// d=128, causal) the work is ~67 MB of q/k/v/o against ~8.6 GFLOP, so the
-// bound is the bytes (~0.02 ms at 3.35 TB/s); from S of about 2048 up the
-// FLOPs bind (989 TFLOP/s bf16).  This first version does not reach either:
-// it runs the products on the CUDA cores in f32 (no mma.sync / wgmma), and
-// it does not overlap the K/V loads with compute (no cp.async or TMA
-// pipeline).  Tensor-core products and a load pipeline are later work.
+// bf16 design (the serving path): one block of 4 warps per (64-row q tile,
+// q head, batch); each warp owns 16 query rows.
+//   * Q is copied once to shared memory by cp.async and, for d <= 128,
+//     moved by ldmatrix into mma A fragments that stay in registers for the
+//     whole key loop (at d = 256 they are re-read from shared memory, which
+//     saves 64 registers a thread).
+//   * K and V tiles are double-buffered in bf16 shared memory and filled by
+//     cp.async.cg, 16 bytes a thread, with commit/wait groups: tile t+1
+//     arrives while tile t computes.  Tiles hold 64 keys at d = 64 and 112
+//     and 32 at d = 128 and 256: at d = 128 that is 164 registers and 52 KB
+//     a block, so three blocks fit an SM where 64-key tiles (87 KB) allow
+//     two, and the serving shape runs 10-12% faster (measured with
+//     tools/flash_tile_sweep.py, which also tries 8 warps and 32 rows a
+//     warp).  Rows are padded by 16 bytes so the 8 rows of each ldmatrix hit
+//     distinct banks.  Rows past the ragged end are zero-filled (src-size 0).
+//   * S = Q K^T and O += P V run on the tensor cores as
+//     mma.sync.m16n8k16 bf16 x bf16 -> f32; K fragments come by ldmatrix,
+//     V fragments by ldmatrix.trans.
+//   * The online softmax runs on the S accumulator in registers: a row
+//     lives in one quad of lanes (two shuffles for its max; the sum stays
+//     per lane and is reduced once at the end), the scale times log2(e) is
+//     one multiply, and each exponential is one ex2.approx.  Masks are
+//     applied only to the tiles that cross the causal diagonal, the window
+//     edge or the ragged end of the keys; interior tiles run without them.
+//   * P never leaves registers: the m16n8 accumulator layout of S is the
+//     A-fragment layout of the next m16n8k16, so P is packed to bf16 pairs
+//     and fed straight to the PV product.
+//   * Epilogue: O is normalised in registers, staged through the warp's own
+//     rows of the Q buffer and written with 16-byte stores; one lse a row.
+//   * Only the key tiles of a q tile's causal/window band [lo, hi) are
+//     loaded, and the heaviest causal q tiles are launched first.
+// Left out: wgmma, TMA, warp specialisation and a persistent grid (which
+// would overlap one tile's epilogue with the next one's loads), and reuse of
+// one K/V tile across the q heads of a GQA group.
+//
+// f32 path: the earlier CUDA-core kernel, kept as the float32
+// instantiation.  The port serves in bf16; f32 runs only in the tests and in
+// the card-vs-CPU reference phase of chip_smoke.py, whose limits (2e-4 per
+// row, 1e-4 on logits) a TF32 tensor-core product (about 1e-3 relative)
+// would miss.  It stages Q and one K/V tile as f32 in shared memory and runs
+// both products as FMA loops.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,18 +72,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per tile
-constexpr int THREADS = 256;     // 16 x 16
-constexpr int ROWS = BQ / 16;    // query rows per thread
-constexpr int COLS = BK / 16;    // score columns per thread
-
-// Dynamic shared memory of one block: Q and one K/V tile (f32, rows padded
-// to D + 1) and the P tile (f32, rows padded to BK + 1).
-constexpr int smem_bytes(int D) {
-  return (int)(((BQ + BK) * (D + 1) + BQ * (BK + 1)) * sizeof(float));
-}
 
 struct Params {
   const void* q;
@@ -66,23 +88,387 @@ struct Params {
   int causal, window;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr float LN2 = 0.69314718055994531f;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+// Tile shape for head dim D: warps per block, m16 tiles (16 query rows) per
+// warp, keys per K/V tile.  Chosen by measurement at the serving shapes
+// (tools/flash_tile_sweep.py, which rewrites this one line to time others).
+template <int D> struct Tile { static constexpr int WARPS = 4, MT = 1, BN = D >= 128 ? 32 : 64; };
+
+template <int D>
+struct Cfg {
+  static constexpr int WARPS = Tile<D>::WARPS, MT = Tile<D>::MT, BN = Tile<D>::BN;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * MT * WARPS;     // query rows per block
+  static constexpr int LD = D + 8;               // shared row stride (elements)
+  static constexpr int CH = D / 8;               // 16-byte chunks per row
+  static constexpr int KS = D / 16;              // k-steps of Q K^T
+  static constexpr int NT = BN / 8;              // n-tiles of S
+  static constexpr int DT = D / 8;               // n-tiles of O
+  static constexpr bool Q_REGS = MT * D <= 128;  // Q fragments kept in registers
+  // Q, then two stages of K, then two stages of V.
+  static constexpr int SMEM = (BQ + 4 * BN) * LD * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU op (results below 2^-126 flush to 0; x = -inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats as a bf16 pair: lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const Params p) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ, BN = C::BN, LD = C::LD, CH = C::CH, MT = C::MT;
+  constexpr int THREADS = C::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BQ x LD
+  __nv_bfloat16* sK = sQ + BQ * LD;                                   // 2 x BN x LD
+  __nv_bfloat16* sV = sK + 2 * BN * LD;                               // 2 x BN x LD
+
+  // Heaviest causal tiles (the last ones) are scheduled first.
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.group;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tg = lane & 3;       // mma row group, thread in group
+  const int wrow = warp * 16 * MT;              // first row of this warp in the tile
+  const int q0 = qt * BQ;
+  const int nq = min(BQ, p.Sq - q0);
+  const int off = p.Sk - p.Sq;
+
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
+                            h * p.q_sh + q0 * p.q_ss;
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // Keys this q tile can see: [lo, hi), as key tiles [t_begin, t_end).
+  int hi = p.Sk;
+  if (p.causal) hi = min(hi, off + q0 + nq);
+  int lo = 0;
+  if (p.window) lo = max(0, off + q0 - p.window + 1);
+  const int t_begin = lo / BN;
+  const int t_end = hi > 0 ? (hi + BN - 1) / BN : 0;
+
+  for (int e = tid; e < BQ * CH; e += THREADS) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool ok = r < nq;
+    cp_async16(smem_u32(sQ + r * LD + c), qb + (ok ? r * p.q_ss : 0) + c, ok);
+  }
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * BN;
+    const int nk = min(BN, p.Sk - k0);
+    __nv_bfloat16* dk = sK + stage * BN * LD;
+    __nv_bfloat16* dv = sV + stage * BN * LD;
+    for (int e = tid; e < BN * CH; e += THREADS) {
+      const int r = e / CH, c = (e % CH) * 8;
+      const bool ok = r < nk;
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(smem_u32(dk + r * LD + c), kb + row * p.k_ss + c, ok);
+      cp_async16(smem_u32(dv + r * LD + c), vb + row * p.v_ss + c, ok);
+    }
+  };
+  if (t_begin < t_end) load_kv(t_begin, 0);
+  cp_async_commit();                              // group: Q and the first K/V tile
+
+  // ldmatrix row addresses of this lane.  Q (A operand): rows lane % 16,
+  // column half lane / 16.  K (B operand, two n-tiles per x4): keys
+  // (lane & 7) + 8 * (lane / 16), column half (lane / 8) & 1.  V (B operand
+  // through .trans, two d-tiles per x4): keys (lane & 7) + 8 * ((lane / 8) & 1),
+  // column half lane / 16.
+  const uint32_t q_addr = smem_u32(sQ + (wrow + (lane & 15)) * LD + (lane >> 4) * 8);
+  const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+  const int v_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+
+  // Per lane: rows g and g + 8 of each of the warp's MT m-tiles.
+  uint32_t qf[C::Q_REGS ? MT * C::KS : 1][4];
+  float acc[MT][C::DT][4];
+  float m[MT][2], l[MT][2];                     // running max (log2 units), lane's part of the sum
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mt][r] = -CUDART_INF_F;
+      l[mt][r] = 0.f;
+    }
+  }
+  const int qpos = off + q0 + wrow + g;          // key position of row (mt 0, g)
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_kv(t + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (C::Q_REGS) {
+      if (t == t_begin) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int ks = 0; ks < C::KS; ++ks)
+            ldsm_x4(qf[mt * C::KS + ks], q_addr + mt * 16 * LD * 2 + ks * 32);
+      }
+    }
+
+    // S = Q K^T: 16 MT x BN a warp, f32.
+    float s[MT][C::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+    const uint32_t k_base = smem_u32(sK + stage * BN * LD + k_lane);
+#pragma unroll
+    for (int ks = 0; ks < C::KS; ++ks) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (C::Q_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[mt][e] = qf[mt * C::KS + ks][e];
+        } else {
+          ldsm_x4(a[mt], q_addr + mt * 16 * LD * 2 + ks * 32);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < C::NT / 2; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kf, k_base + (np * 16 * LD + ks * 16) * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], kf[0], kf[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // Scale to log2 units; mask only tiles at the diagonal, window edge or ragged end.
+    const int k0 = t * BN;
+    const bool need_mask = k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > off + q0) ||
+                           (p.window && k0 <= off + q0 + BQ - 1 - p.window);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[mt][j][e] * p.scale_log2;
+          if (need_mask) {
+            const int kpos = k0 + j * 8 + 2 * tg + (e & 1);
+            const int qp = qpos + mt * 16 + (e >> 1) * 8;
+            bool ok = kpos < p.Sk;
+            if (p.causal) ok = ok && kpos <= qp;
+            if (p.window) ok = ok && qp - kpos < p.window;
+            x = ok ? x : -CUDART_INF_F;
+          }
+          s[mt][j][e] = x;
+        }
+
+    // Online softmax on the accumulator; a row lives in one quad of lanes.
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mu[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[mt][r];
+#pragma unroll
+        for (int j = 0; j < C::NT; ++j)
+          mx = fmaxf(mx, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mu[r] = mx == -CUDART_INF_F ? 0.f : mx;   // row fully masked so far
+        const float corr = ex2(m[mt][r] - mu[r]);
+        m[mt][r] = mx;
+        l[mt][r] *= corr;
+#pragma unroll
+        for (int j = 0; j < C::DT; ++j) {
+          acc[mt][j][2 * r] *= corr;
+          acc[mt][j][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][j][e] = ex2(s[mt][j][e] - mu[e >> 1]);
+          l[mt][e >> 1] += s[mt][j][e];
+        }
+    }
+
+    // O += P V, P as bf16 A fragments straight from the S accumulator.
+    const uint32_t v_base = smem_u32(sV + stage * BN * LD + v_lane);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < C::DT / 2; ++dp) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, v_base + (kk * 16 * LD + dp * 16) * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * dp], a[mt], vf[0], vf[1]);
+          mma_bf16(acc[mt][2 * dp + 1], a[mt], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();                              // this stage is refilled next
+  }
+  cp_async_wait<0>();                             // Q's copy, when the band was empty
+  __syncthreads();
+
+  // Epilogue: finish the row sums, normalise, stage the warp's rows in its
+  // own rows of sQ, then 16-byte stores.
+  __nv_bfloat16* so = sQ + wrow * LD;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
+      l[mt][r] = fmaxf(l[mt][r], 1e-30f);
+      inv[r] = 1.f / l[mt][r];
+    }
+#pragma unroll
+    for (int j = 0; j < C::DT; ++j) {
+      *reinterpret_cast<uint32_t*>(so + (mt * 16 + g) * LD + j * 8 + 2 * tg) =
+          pack_bf16(acc[mt][j][0] * inv[0], acc[mt][j][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(so + (mt * 16 + g + 8) * LD + j * 8 + 2 * tg) =
+          pack_bf16(acc[mt][j][2] * inv[1], acc[mt][j][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh +
+                      q0 * p.o_ss;
+  for (int e = lane; e < 16 * MT * CH; e += 32) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const int row = wrow + r;
+    if (row < nq)
+      *reinterpret_cast<uint4*>(ob + row * p.o_ss + c) =
+          *reinterpret_cast<const uint4*>(so + r * LD + c);
+  }
+  if (tg == 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wrow + mt * 16 + g + 8 * r;
+        if (row < nq)
+          p.lse[((long long)b * p.Hq + h) * p.Sq + q0 + row] =
+              (m[mt][r] + log2f(l[mt][r])) * LN2;
+      }
+  }
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  using C = Cfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + C::BQ - 1) / C::BQ, p.Hq, B);
+  flash_fwd_bf16_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core kernel
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int BQ = 64;           // query rows per block
+constexpr int BK = 64;           // keys per tile
+constexpr int THREADS = 256;     // 16 x 16
+constexpr int ROWS = BQ / 16;    // query rows per thread
+constexpr int COLS = BK / 16;    // score columns per thread
+
+// Dynamic shared memory of one block: Q and one K/V tile (rows padded to
+// D + 1) and the P tile (rows padded to BK + 1).
+constexpr int smem_bytes(int D) {
+  return (int)(((BQ + BK) * (D + 1) + BQ * (BK + 1)) * sizeof(float));
 }
 
 // Stage 64 rows (row stride `ss` elements) of a (S, D) slab into shared
-// memory as f32 with a padded row stride of D + 1 (conflict-free column
-// reads).  Rows at or past `n_valid` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss, int n_valid) {
+// memory with a padded row stride of D + 1 (conflict-free column reads).
+// Rows at or past `n_valid` are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long ss, int n_valid) {
   for (int e = threadIdx.x; e < 64 * D; e += THREADS) {
     const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] = r < n_valid ? to_f32(src[(long long)r * ss + c]) : 0.f;
+    dst[r * (D + 1) + c] = r < n_valid ? src[(long long)r * ss + c] : 0.f;
   }
 }
 
@@ -98,8 +484,8 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) {
   extern __shared__ float smem[];
   float* q_s = smem;                    // BQ x (D + 1)
   float* kv_s = q_s + BQ * (D + 1);     // BK x (D + 1): K, then V, of one tile
@@ -116,11 +502,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const int nq = min(BQ, p.Sq - q0);
   const int off = p.Sk - p.Sq;
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<T, D>(q_s, qb, p.q_ss, nq);
+  load_tile<D>(q_s, qb, p.q_ss, nq);
 
   // Keys this q tile can see: [lo, hi).
   int hi = p.Sk;
@@ -140,7 +526,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   for (int k0 = (lo / BK) * BK; k0 < hi; k0 += BK) {
     const int nk = min(BK, p.Sk - k0);
     __syncthreads();                    // previous V tile consumed; Q staged
-    load_tile<T, D>(kv_s, kb + k0 * p.k_ss, p.k_ss, nk);
+    load_tile<D>(kv_s, kb + k0 * p.k_ss, p.k_ss, nk);
     __syncthreads();
 
     float s[ROWS][COLS];
@@ -193,7 +579,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     }
 
     __syncthreads();                    // K reads done, P visible
-    load_tile<T, D>(kv_s, vb + k0 * p.v_ss, p.v_ss, nk);
+    load_tile<D>(kv_s, vb + k0 * p.v_ss, p.v_ss, nk);
     __syncthreads();
 
 #pragma unroll 4
@@ -216,46 +602,59 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     if (r >= nq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
     const float inv = 1.f / lc;
-    T* orow = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)(q0 + r) * p.o_ss;
+    float* orow = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)(q0 + r) * p.o_ss;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < D / 16; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
     if (tx == 0)
-      p.lse[((long long)b * p.Hq + h) * p.Sq + q0 + r] = (m[i] + log2f(lc)) * 0.69314718055994531f;
+      p.lse[((long long)b * p.Hq + h) * p.Sq + q0 + r] = (m[i] + log2f(lc)) * LN2;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const int smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_f32_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(p, B, stream);
-    case 112: return launch<T, 112>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    case 256: return launch<T, 256>(p, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
+}  // namespace f32
+
+// dtype: 0 = float32, 1 = bfloat16.
+template <int D>
+cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
+  if (dtype == 0) return f32::launch<D>(p, B, stream);
+  if (dtype == 1) return tc::launch<D>(p, B, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+int smem_of(int dtype) {
+  return dtype == 0 ? f32::smem_bytes(D) : dtype == 1 ? tc::Cfg<D>::SMEM : -1;
 }
 
 }  // namespace
 
-// Shared memory a block takes at head dim D (-1 if D is not supported).
-extern "C" int flash_attention_fwd_smem_bytes(int D) {
-  return (D == 64 || D == 112 || D == 128 || D == 256) ? smem_bytes(D) : -1;
+// Shared memory a block takes at head dim D for dtype (0 = float32,
+// 1 = bfloat16); -1 if the pair is not supported.
+extern "C" int flash_attention_fwd_smem_bytes(int D, int dtype) {
+  switch (D) {
+    case 64: return smem_of<64>(dtype);
+    case 112: return smem_of<112>(dtype);
+    case 128: return smem_of<128>(dtype);
+    case 256: return smem_of<256>(dtype);
+    default: return -1;
+  }
 }
 
 // Plain C entry point (loaded with ctypes).  Strides are in elements; the
-// last dim of q, k, v and o must be contiguous.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns the cudaError_t of the launch (0 on success).
+// last dim of q, k, v and o must be contiguous.  For bfloat16 the data
+// pointers must be 16-byte aligned and the batch, row and head strides
+// multiples of 8 (the wrapper checks).  dtype: 0 = float32, 1 = bfloat16.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                                    long long q_sb, long long q_ss, long long q_sh,
@@ -275,9 +674,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.scale_log2 = scale * 1.4426950408889634f;
   p.causal = causal; p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) err = dispatch_d<float>(p, B, D, s);
-  else if (dtype == 1) err = dispatch_d<__nv_bfloat16>(p, B, D, s);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  switch (D) {
+    case 64: return (int)launch<64>(p, B, dtype, s);
+    case 112: return (int)launch<112>(p, B, dtype, s);
+    case 128: return (int)launch<128>(p, B, dtype, s);
+    case 256: return (int)launch<256>(p, B, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -7,7 +7,11 @@ causal offset, ragged lengths, strided (B,S,H,d) reads, and an lse output).
 
 ``flash_attention_fwd`` dispatches by the device of its inputs: a CPU tensor
 goes to ``flash_attention_plain``; a CUDA tensor launches the kernel or
-raises.  Each function counts its own runs in a plain integer attribute
+raises.  bfloat16 runs the tensor-core kernel, which copies 16 bytes at a
+time, so its inputs need 16-byte-aligned data and batch, row and head
+strides that are multiples of 8 elements (``_check`` raises otherwise;
+nothing is copied); float32 runs the CUDA-core kernel, which takes any
+strides.  Each function counts its own runs in a plain integer attribute
 (``flash_attention_fwd.launches``, ``flash_attention_plain.calls``) so a run
 can show which path it took.
 """
@@ -86,17 +90,22 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
 flash_attention_plain.calls = 0
 
 
-@functools.cache
-def _kernel_fn():
-    from repro_torch.kernels import build
-
-    fn = build.load("flash_attention_fwd").flash_attention_fwd
+def bind(lib: ctypes.CDLL):
+    """The C entry point ``flash_attention_fwd`` of a built library, typed."""
+    fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel_fn():
+    from repro_torch.kernels import build
+
+    return bind(build.load("flash_attention_fwd"))
 
 
 def _check(q, k, v):
@@ -119,31 +128,59 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, "
                          f"{v.device}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the last dim of q, k and v must be contiguous")
     if B == 0 or Sq == 0 or k.shape[1] == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    # bf16: cp.async moves 16 bytes (8 elements), so every row of every head
+    # must start on a 16-byte boundary.  A quick test of all three first (it
+    # runs on every call); the one that names the fault only when it fails.
+    if q.dtype == torch.bfloat16 and (
+            (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16
+            or any(s % 8 for s in q.stride()[:3] + k.stride()[:3] + v.stride()[:3])):
+        _check_bf16_alignment(q, k, v)
+
+
+def _check_bf16_alignment(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: bfloat16 data must be 16-byte aligned; got "
+                             f"address {t.data_ptr():#x} (storage offset "
+                             f"{t.storage_offset()})")
+        for dim, what in ((0, "batch"), (1, "row"), (2, "head")):
+            # the stride of a size-1 dim is never used
+            if t.shape[dim] > 1 and t.stride(dim) % 8:
+                raise ValueError(f"{name}: {what} stride {t.stride(dim)} is not a "
+                                 f"multiple of 8 elements (bfloat16 takes 16-byte rows)")
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
     """Attention forward, (o, lse).  q: (B,Sq,Hq,d); k, v: (B,Sk,Hkv,d).
 
     On CUDA tensors this launches the Hopper kernel (head dim 64, 112, 128
-    or 256; float32 or bfloat16; last dim contiguous, any other strides) on the
-    current stream.  CPU tensors go to :func:`flash_attention_plain`.  Any
-    other device raises."""
+    or 256; float32 or bfloat16; last dim contiguous; for bfloat16, 16-byte
+    aligned data and strides in multiples of 8) on the current stream.  CPU
+    tensors go to :func:`flash_attention_plain`.  Any other device raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, "
                          f"not {q.device}")
     _check(q, k, v)
+    o, lse = launch(_kernel_fn(), q, k, v, causal=causal, window=window, scale=scale)
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def launch(fn, q, k, v, *, causal, window, scale):
+    """Allocate (o, lse) and launch ``fn``, a ctypes binding of the C entry
+    point ``flash_attention_fwd``, on checked CUDA tensors; raise if the
+    launch fails."""
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty((B, Sq, Hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 B, Sq, Sk, Hq, Hkv, d,
@@ -152,7 +189,6 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: cudaError {rc}")
-    flash_attention_fwd.launches += 1
     return o, lse
 
 

@@ -8,7 +8,8 @@ is held to a logsumexp of the reference scores.  Tolerances are those of
 tests/test_kernels.py: f32 2e-4, bf16 3e-2.  The kernel itself is held to
 the plain version on the card (``gpu`` marker): o per row (max|Δ| of a row
 over max|plain| of that row) at those bounds, and lse, f32 on both sides,
-at 2e-4 absolute for every input dtype.
+at 2e-4 absolute for every input dtype.  The bfloat16 kernel's input rules
+(16-byte-aligned data, strides in multiples of 8) are checked on the CPU.
 """
 
 import math
@@ -23,6 +24,7 @@ from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
+    _check,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -158,24 +160,74 @@ def test_wrapper_dispatches_by_device():
         flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
+def _bf16(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["storage_offset", "row_stride", "packed_views",
+                                  "float32_any_stride"])
+def test_check_bf16_alignment(case):
+    """The bf16 kernel copies 16 bytes at a time: _check raises on a view it
+    cannot read that way, naming the tensor and the stride, and takes the
+    aligned strided views the model path and a packed qkv buffer give."""
+    B, S, H, d = 2, 8, 2, 64
+    q, k, v = (_bf16((B, S, H, d), i) for i in range(3))
+    _check(q, k, v)
+    if case == "storage_offset":
+        bad = _bf16((B * S * H * d + 1,), 3)[1:].view(B, S, H, d)
+        assert bad.storage_offset() == 1
+        with pytest.raises(ValueError, match="q: bfloat16 data must be 16-byte aligned"):
+            _check(bad, k, v)
+    elif case == "row_stride":
+        bad = _bf16((B, S, H * d + 4), 3)[..., :H * d].unflatten(-1, (H, d))
+        assert bad.stride(1) == H * d + 4
+        with pytest.raises(ValueError, match=f"k: row stride {H * d + 4} is not a "
+                                             "multiple of 8"):
+            _check(q, bad, v)
+    elif case == "packed_views":
+        packed = _bf16((B, S, 3, H, d), 3)
+        _check(packed[:, :, 0], packed[:, :, 1], packed[:, :, 2])
+    else:
+        buf = _bf16((B, S, H * d + 3), 3).float()
+        odd = buf[..., 1:H * d + 1].unflatten(-1, (H, d))
+        assert odd.storage_offset() == 1 and odd.stride(1) == H * d + 3
+        _check(odd, odd, odd)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,d,window", [
-    (2, 256, 256, 8, 8, 128, 0),
-    (1, 200, 200, 8, 1, 256, 0),
-    (2, 96, 1000, 5, 5, 64, 0),
-    (1, 700, 700, 6, 2, 128, 128),
-    (2, 333, 333, 4, 4, 112, 0),     # zamba2's head dim
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,d,causal,window,packed", [
+    (2, 256, 256, 8, 8, 128, True, 0, False),
+    (1, 200, 200, 8, 1, 256, True, 0, False),
+    (2, 96, 1000, 5, 5, 64, True, 0, False),
+    (1, 700, 700, 6, 2, 128, True, 128, False),
+    (2, 333, 333, 4, 4, 112, True, 0, False),    # zamba2's head dim
+    (2, 17, 17, 4, 2, 128, True, 0, False),      # S inside one tile
+    (2, 65, 65, 4, 2, 128, True, 0, False),      # one row past a tile edge
+    (2, 1, 300, 8, 2, 128, True, 0, False),      # Sq = 1 against Sk = 300
+    (1, 256, 256, 64, 8, 128, True, 0, False),   # GQA 64:8 (qwen2-72b)
+    (2, 200, 200, 8, 8, 128, True, 0, True),     # views of one packed (B,S,3,H,d)
+    (2, 100, 400, 4, 4, 128, True, 128, False),  # window 128 with Sq < Sk
+    (2, 60, 90, 4, 2, 64, False, 0, False),      # bidirectional, ragged
+    (2, 130, 190, 4, 2, 64, True, 0, False),     # each head dim, Sq < Sk, ragged
+    (2, 130, 190, 4, 2, 112, True, 0, False),
+    (2, 130, 190, 4, 2, 128, True, 0, False),
+    (2, 130, 190, 4, 2, 256, True, 0, False),
 ])
-def test_kernel_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, d, window, dtype,
-                                      cuda_device):
+def test_kernel_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, d, causal, window, packed,
+                                      dtype, cuda_device):
     _, (q, k, v) = _inputs(6, B, Sq, Sk, Hq, Hkv, d, dtype)
     q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    if packed:
+        buf = torch.stack((q, k, v), dim=2)          # (B, S, 3, H, d)
+        q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+        assert not q.is_contiguous()
     launches = flash_attention_fwd.launches
-    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == launches + 1
-    po, plse = flash_attention_plain(q, k, v, causal=True, window=window)
+    po, plse = flash_attention_plain(q, k, v, causal=causal, window=window)
     o, po = _f32(o.cpu()), _f32(po.cpu())
     row_rel = np.abs(o - po).max(-1) / np.abs(po).max(-1)
     assert row_rel.max() <= TOL[dtype]["rtol"], row_rel.max()
