@@ -8,12 +8,14 @@ exits nonzero without printing a result:
 
   device    card name and count, nvidia-smi name and power limit
   build     nvcc build of every kernel source for sm_90a (ptxas report,
-            seconds, shared memory per block; flash for both dtypes)
+            seconds, shared memory per block for both dtypes of flash and
+            SSD, bf16 SSD blocks per SM)
   kernels   each Hopper kernel against its plain PyTorch version on the
             same inputs, at its serving path's shape and around it, with
-            kernel / plain (/ library) times by CUDA events and the bound
-            (flash and SDPA as CUDA-graph replays, device time only; the
-            eager time, which includes the host's, beside them):
+            kernel / plain (/ library) times and the bound (kernels and
+            SDPA as CUDA-graph replays, device time only; the eager
+            CUDA-event time, which includes the host's, beside them; the
+            plain versions by CUDA events):
             flash_attention_fwd: o held per row, max|Δ| of a row over
               max|plain| of that row, at f32 2e-4 and bf16 3e-2 (the bounds
               of tests/test_kernels.py); lse, f32 on both sides for every
@@ -188,20 +190,23 @@ def phase_build():
     t0 = time.perf_counter()
     built = build.build()
 
-    def smem(lib, fn_name, nargs):
+    def int_fn(lib, fn_name, nargs):
         fn = getattr(build.load(lib), fn_name)
         fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
         return fn
 
-    fa = smem("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 2)
-    ssd = smem("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 2)
-    wkv = smem("wkv6_fwd", "wkv6_fwd_smem_bytes", 1)
+    fa = int_fn("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 2)
+    ssd = int_fn("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 3)
+    ssd_occ = int_fn("ssd_scan_fwd", "ssd_scan_fwd_bf16_blocks_per_sm", 0)
+    wkv = int_fn("wkv6_fwd", "wkv6_fwd_smem_bytes", 1)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          smem_bytes={"flash_attention_fwd": {dt: {d: fa(d, code) for d in HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1),
                                                               ("float32", 0))},
-                     "ssd_scan_fwd": {f"P={p},N={n}": ssd(p, n) for p, n in SHAPES},
+                     "ssd_scan_fwd": {dt: {f"P={p},N={n}": ssd(p, n, code) for p, n in SHAPES}
+                                      for dt, code in (("bfloat16", 1), ("float32", 0))},
                      "wkv6_fwd": {d: wkv(d) for d in WKV_DIMS}},
+         ssd_bf16_blocks_per_sm=ssd_occ(),
          libs={n: {"path": str(b.path.relative_to(Path(__file__).resolve().parent)),
                    "nvcc_s": round(b.seconds, 3), "cached": b.cached,
                    "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
@@ -341,16 +346,19 @@ def phase_ssd_kernels():
         py, ph = ssd_scan_plain(*args)
         err_y, err_h = rel_err(y, py), rel_err(h, ph)
         ok = err_y <= TOL_SCAN[dt] and err_h <= TOL_STATE and finite(y, h)
-        kernel_ms = cuda_ms(lambda: ssd_scan_fwd(*args), 20 if main else 5)
+        reps = 50 if main else 10
+        kernel_ms_eager = cuda_ms(lambda: ssd_scan_fwd(*args), reps)
+        kernel_ms = graph_ms(lambda: ssd_scan_fwd(*args), reps)
         plain_ms = cuda_ms(lambda: ssd_scan_plain(*args), 5 if main else 1, warmup=1)
         bms, by, flops, nbytes = ssd_bound(B, S, H, P, N, with_h0, dt)
         rows.append(dict(case=label, B=B, S=S, H=H, P=P, N=N, h0=with_h0,
                          dtype=str(dt).removeprefix("torch."), tol_y=TOL_SCAN[dt],
                          tol_state=TOL_STATE, rel_err_y=err_y, rel_err_h_last=err_h,
                          max_abs_err_y=(y.float() - py.float()).abs().max().item(),
-                         ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bms, bound_by=by, gflop=flops / 1e9,
-                         mbytes=nbytes / 1e6, gbytes_per_s=nbytes / kernel_ms / 1e6))
+                         ok=ok, kernel_ms=kernel_ms, kernel_ms_eager=kernel_ms_eager,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                         x_bound=kernel_ms / bms, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                         tflops=flops / kernel_ms / 1e9, gbytes_per_s=nbytes / kernel_ms / 1e6))
         if not ok:
             failed.append(label)
         del conv, x, Bm, Cm, dtv, A, h0, y, h, py, ph, args
@@ -408,16 +416,19 @@ def phase_wkv_kernels():
         err_y, err_s = rel_err(y, py), rel_err(s, ps)
         ok = (err_y <= TOL_STATE and err_s <= TOL_STATE and finite(y, s)
               and y.dtype == torch.float32)
-        kernel_ms = cuda_ms(lambda: wkv6_fwd(*args), 20 if main else 5)
+        reps = 50 if main else 10
+        kernel_ms_eager = cuda_ms(lambda: wkv6_fwd(*args), reps)
+        kernel_ms = graph_ms(lambda: wkv6_fwd(*args), reps)
         plain_ms = cuda_ms(lambda: wkv6_plain(*args), 5 if main else 1, warmup=1)
         bms, by, flops, nbytes = wkv_bound(B, S, H, hd, with_s0, dt)
         rows.append(dict(case=label, B=B, S=S, H=H, hd=hd, s0=with_s0,
                          dtype=str(dt).removeprefix("torch."), tol=TOL_STATE,
                          rel_err_y=err_y, rel_err_s_last=err_s,
                          max_abs_err_y=(y - py).abs().max().item(), ok=ok,
-                         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bms, bound_by=by, gflop=flops / 1e9,
-                         mbytes=nbytes / 1e6, gbytes_per_s=nbytes / kernel_ms / 1e6))
+                         kernel_ms=kernel_ms, kernel_ms_eager=kernel_ms_eager,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                         x_bound=kernel_ms / bms, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                         tflops=flops / kernel_ms / 1e9, gbytes_per_s=nbytes / kernel_ms / 1e6))
         if not ok:
             failed.append(label)
         del r, k, v, logw, u, s0, y, s, py, ps, args
@@ -586,8 +597,8 @@ def phase_serve(arch: str) -> dict[str, int]:
 
 
 # Device-side names of the port's kernels, as the profiler lists them.
-PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "ssd_fwd_kernel",
-                     "wkv6_fwd_kernel")
+PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "ssd_fwd_bf16_kernel",
+                     "ssd_fwd_f32_kernel", "wkv6_fwd_kernel")
 
 
 def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):

@@ -12,8 +12,12 @@ Rounding follows the model path: ``xdt = x * dt`` is formed in x's dtype,
 to x's dtype.
 
 ``ssd_scan_fwd`` dispatches by the device of its inputs: a CPU tensor goes
-to ``ssd_scan_plain``; a CUDA tensor launches the kernel or raises.  Each
-function counts its own runs in a plain integer attribute
+to ``ssd_scan_plain``; a CUDA tensor launches the kernel or raises.
+bfloat16 runs the tensor-core kernel, which copies 16 bytes at a time, so
+x, B_ and C need 16-byte-aligned data and batch, time (and x's head)
+strides that are multiples of 8 elements (``_check`` raises otherwise;
+nothing is copied); float32 runs the CUDA-core kernel, which takes any
+strides.  Each function counts its own runs in a plain integer attribute
 (``ssd_scan_fwd.launches``, ``ssd_scan_plain.calls``).
 """
 
@@ -78,15 +82,20 @@ def ssd_scan_plain(x, dt, A, B_, C, h0=None, *, chunk: int = CHUNK):
 ssd_scan_plain.calls = 0
 
 
-@functools.cache
-def _kernel_fn():
-    from repro_torch.kernels import build
-
-    fn = build.load("ssd_scan_fwd").ssd_scan_fwd
+def bind(lib: ctypes.CDLL):
+    """The C entry point ``ssd_scan_fwd`` of a built library, typed."""
+    fn = lib.ssd_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel_fn():
+    from repro_torch.kernels import build
+
+    return bind(build.load("ssd_scan_fwd"))
 
 
 def _check(x, dt, A, B_, C, h0):
@@ -119,14 +128,42 @@ def _check(x, dt, A, B_, C, h0):
                          f"{h0.dtype} {tuple(h0.shape)}")
     if Bb == 0 or S == 0 or H == 0:
         raise ValueError(f"empty scan: x {tuple(x.shape)}")
+    # bf16: cp.async moves 16 bytes (8 elements), so every row of every head
+    # must start on a 16-byte boundary.  A quick test first (it runs on every
+    # call); the one that names the fault only when it fails.
+    if x.dtype == torch.bfloat16 and (
+            (x.data_ptr() | B_.data_ptr() | C.data_ptr()) % 16
+            or any(s % 8 for s in x.stride()[:3] + B_.stride()[:2] + C.stride()[:2])
+            or (h0 is not None and h0.data_ptr() % 8)):
+        _check_bf16_alignment(x, B_, C, h0)
+
+
+def _check_bf16_alignment(x, B_, C, h0):
+    if h0 is not None and h0.data_ptr() % 8:
+        raise ValueError(f"h0: data must be 8-byte aligned for the bfloat16 kernel; got "
+                         f"address {h0.data_ptr():#x}")
+    for name, t in (("x", x), ("B_", B_), ("C", C)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: bfloat16 data must be 16-byte aligned; got "
+                             f"address {t.data_ptr():#x} (storage offset "
+                             f"{t.storage_offset()})")
+        for dim, what in ((0, "batch"), (1, "time"), (2, "head"))[:t.ndim - 1]:
+            # the stride of a size-1 dim is never used
+            if t.shape[dim] > 1 and t.stride(dim) % 8:
+                raise ValueError(f"{name}: {what} stride {t.stride(dim)} is not a "
+                                 f"multiple of 8 elements (bfloat16 takes 16-byte rows)")
 
 
 def ssd_scan_fwd(x, dt, A, B_, C, h0=None):
     """SSD scan forward, (y, h_last).  Shapes as :func:`ssd_scan_plain`.
 
     On CUDA tensors this launches the Hopper kernel on the current stream
-    (x, B_, C float32 or bfloat16 with their last dim contiguous, any other
-    strides; dt, A float32; (P, N) in ``SHAPES``).  CPU tensors go to
+    (x, B_, C float32 or bfloat16 with their last dim contiguous; for
+    bfloat16, 16-byte-aligned data and batch, time and head strides in
+    multiples of 8 elements, which ``mamba2_apply``'s views of the conv
+    output have: row stride H·P + 2N = 7,296 at zamba2-7b, B and C at
+    offsets 7,168 and 7,232; float32 takes any other strides; dt, A float32
+    with any strides; (P, N) in ``SHAPES``).  CPU tensors go to
     :func:`ssd_scan_plain`, in the kernel's chunks of ``CHUNK``.  Any other
     device raises."""
     if x.device.type == "cpu":
@@ -134,12 +171,20 @@ def ssd_scan_fwd(x, dt, A, B_, C, h0=None):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_fwd runs on cuda or cpu tensors, not {x.device}")
     _check(x, dt, A, B_, C, h0)
+    y, h_last = launch(_kernel_fn(), x, dt, A, B_, C, h0)
+    ssd_scan_fwd.launches += 1
+    return y, h_last
+
+
+def launch(fn, x, dt, A, B_, C, h0):
+    """Allocate (y, h_last) and launch ``fn``, a ctypes binding of the C
+    entry point ``ssd_scan_fwd``, on checked CUDA tensors; raise if the
+    launch fails."""
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     A = A.contiguous()
     y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
     h_last = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
-    fn = _kernel_fn()
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C.data_ptr(),
                 h0.data_ptr() if h0 is not None else None, y.data_ptr(),
@@ -149,7 +194,6 @@ def ssd_scan_fwd(x, dt, A, B_, C, h0=None):
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan_fwd kernel launch failed: cudaError {rc}")
-    ssd_scan_fwd.launches += 1
     return y, h_last
 
 

@@ -25,7 +25,7 @@ from repro.kernels import ref as jref
 from repro.models import mamba2 as jmamba2
 from repro_torch import configs
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import _check, ssd_scan_fwd, ssd_scan_plain
 from repro_torch.models import mamba2 as tmamba2
 
 BOUND = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -210,6 +210,11 @@ def test_wrapper_dispatches_by_device():
     (1, 1000, 4, 64, 64, True),
     (2, 77, 5, 64, 64, False),
     (3, 1, 2, 64, 64, True),         # a single step
+    (2, 63, 3, 64, 64, True),        # the chunk edges: one short chunk,
+    (2, 64, 3, 64, 64, True),        # one whole chunk,
+    (2, 65, 3, 64, 64, False),       # one row into a second chunk,
+    (2, 128, 3, 64, 64, True),       # two whole chunks
+    (1, 4096, 4, 64, 64, True),      # a long prompt from a state
 ])
 def test_kernel_matches_plain_on_card(B, S, H, P, N, h0, dtype, cuda_device):
     _, t = _inputs(8, B, S, H, P, N, dtype, h0=h0)
@@ -222,3 +227,80 @@ def test_kernel_matches_plain_on_card(B, S, H, P, N, h0, dtype, cuda_device):
     assert y.dtype == py.dtype
     assert _rel(y, py) <= BOUND[dtype]
     assert _rel(h_last, ph) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,split", [(512, 200), (300, 64), (130, 65)])
+def test_kernel_chained_through_h_last_on_card(S, split, dtype, cuda_device):
+    """Two kernel calls chained through h_last -> h0 equal one call: y and
+    h_last at the kernel-vs-plain limits."""
+    _, t = _inputs(10, 2, S, 4, 64, 64, dtype, h0=True)
+    t = {k: v.to(cuda_device) for k, v in t.items()}
+    first = {k: v[:, :split] if v.ndim > 1 and k != "h0" else v for k, v in t.items()}
+    second = {k: v[:, split:] if v.ndim > 1 and k != "h0" else v for k, v in t.items()}
+    y, h = ssd_scan_fwd(*_args(t), t["h0"])
+    y1, h1 = ssd_scan_fwd(*_args(first), t["h0"])
+    y2, h2 = ssd_scan_fwd(*_args(second), h1)
+    torch.cuda.synchronize()
+    assert _rel(torch.cat([y1, y2], 1), y) <= BOUND[dtype]
+    assert _rel(h2, h) <= 2e-5
+
+
+def _views(dtype, B=2, S=5, H=3, P=64, N=64, extra=0):
+    """x, B_, C as views of one conv output (B,S,H*P + 2N + extra), the way
+    mamba2_apply passes them, and dt, A."""
+    conv = torch.zeros((B, S, H * P + 2 * N + extra), dtype=dtype)
+    x = conv[..., :H * P].view(B, S, H, P)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:H * P + 2 * N]
+    return x, torch.zeros((B, S, H)), -torch.ones(H), Bm, Cm
+
+
+def _offset(t, by):
+    """The same shape and strides as t, `by` elements further into a larger buffer."""
+    buf = torch.zeros(t.untyped_storage().nbytes() // t.element_size() + by, dtype=t.dtype)
+    return buf.as_strided(t.shape, t.stride(), by)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("x_storage_offset", "x: bfloat16 data must be 16-byte aligned"),
+    ("B_storage_offset", "B_: bfloat16 data must be 16-byte aligned"),
+    ("time_stride", "x: time stride 324 is not a multiple of 8"),
+    ("B_batch_stride", "B_: batch stride 364 is not a multiple of 8"),
+    ("x_head_stride", "x: head stride 68 is not a multiple of 8"),
+    ("h0_offset", "h0: data must be 8-byte aligned"),
+])
+def test_check_rejects_misaligned_bf16(case, match):
+    """The bf16 kernel copies 16-byte rows: _check raises on a view it cannot
+    take, naming the tensor and the stride, and copies nothing."""
+    x, dt, A, Bm, Cm = _views(torch.bfloat16)
+    h0 = None
+    if case == "x_storage_offset":
+        x = _offset(x, 4)
+    elif case == "B_storage_offset":
+        Bm = _offset(Bm, 1)
+    elif case == "time_stride":
+        x, dt, A, Bm, Cm = _views(torch.bfloat16, B=1, extra=4)   # batch stride unused
+    elif case == "B_batch_stride":
+        Bm = torch.zeros(1024, dtype=torch.bfloat16).as_strided((2, 5, 64), (364, 72, 1))
+    elif case == "x_head_stride":
+        x = torch.zeros(4096, dtype=torch.bfloat16).as_strided((2, 5, 3, 64), (1024, 200, 68, 1))
+    elif case == "h0_offset":
+        h0 = torch.zeros(2 * 3 * 64 * 64 + 1)[1:].view(2, 3, 64, 64)
+    with pytest.raises(ValueError, match=match):
+        _check(x, dt, A, Bm, Cm, h0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_check_takes_the_model_views(dtype):
+    """mamba2_apply's views of the conv output qualify in both dtypes (row
+    stride H·P + 2N, B and C at offsets H·P and H·P + N), with a state."""
+    x, dt, A, Bm, Cm = _views(TDT[dtype])
+    assert x.stride()[:3] == (5 * 320, 320, 64) and Bm.storage_offset() == 192
+    _check(x, dt, A, Bm, Cm, torch.zeros((2, 3, 64, 64)))
+
+
+def test_check_takes_any_float32_stride():
+    """The f32 kernel reads element by element: misaligned views are fine."""
+    x, dt, A, Bm, Cm = _views(torch.float32, extra=3)
+    _check(_offset(x, 1), dt, A, _offset(Bm, 3), Cm, None)
