@@ -23,7 +23,8 @@ exits nonzero without printing a result:
               and kernel_vs_library = kernel ms / SDPA ms;
             ssd_scan_fwd: y held at max|Δ| / max|plain| <= f32 2e-5, bf16
               3e-2, h_last at 2e-5 relative (tests/test_kernels.py:73);
-            wkv6_fwd: y and S_last at 2e-5 relative (tests/test_kernels.py:88)
+            wkv6_fwd: y and S_last at 2e-5 relative (tests/test_kernels.py:88),
+              the chunk kernels at S > 1 and the decode kernel at S = 1
   reference small llama (head dim 128), zamba2 (SSD scan, attention head dim
             112) and rwkv6 models served on the card and on the CPU from
             the same weights: f32 logits of prefill and 3 decode steps agree
@@ -33,7 +34,8 @@ exits nonzero without printing a result:
             prompt 512, 32 new tokens through ServeEngine.generate; kernel
             launches counted over that one run (llama2-7b: 32 flash per
             prefill; zamba2-7b: 81 SSD and 13 flash per prefill; rwkv6-1.6b:
-            24 WKV6 per prefill and per decode step, 792 in all; 0 plain-
+            24 WKV6 per prefill and per decode step, 792 in all, 768 of
+            them by the S = 1 decode kernel; 0 plain-
             version calls); repeatable greedy output; prefill ms, decode
             ms/token, tok/s, peak memory; decode-vs-prefill at full width
             (rel < 0.08, as tests/test_models_smoke.py)
@@ -198,15 +200,17 @@ def phase_build():
     fa = int_fn("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 2)
     ssd = int_fn("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 3)
     ssd_occ = int_fn("ssd_scan_fwd", "ssd_scan_fwd_bf16_blocks_per_sm", 0)
-    wkv = int_fn("wkv6_fwd", "wkv6_fwd_smem_bytes", 1)
+    wkv = int_fn("wkv6_fwd", "wkv6_fwd_smem_bytes", 2)
+    wkv_occ = int_fn("wkv6_fwd", "wkv6_fwd_bf16_blocks_per_sm", 0)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          smem_bytes={"flash_attention_fwd": {dt: {d: fa(d, code) for d in HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1),
                                                               ("float32", 0))},
                      "ssd_scan_fwd": {dt: {f"P={p},N={n}": ssd(p, n, code) for p, n in SHAPES}
                                       for dt, code in (("bfloat16", 1), ("float32", 0))},
-                     "wkv6_fwd": {d: wkv(d) for d in WKV_DIMS}},
-         ssd_bf16_blocks_per_sm=ssd_occ(),
+                     "wkv6_fwd": {dt: {d: wkv(d, code) for d in WKV_DIMS}
+                                  for dt, code in (("bfloat16", 1), ("float32", 0))}},
+         ssd_bf16_blocks_per_sm=ssd_occ(), wkv6_bf16_blocks_per_sm=wkv_occ(),
          libs={n: {"path": str(b.path.relative_to(Path(__file__).resolve().parent)),
                    "nvcc_s": round(b.seconds, 3), "cached": b.cached,
                    "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
@@ -369,8 +373,10 @@ def phase_ssd_kernels():
     return rows[0]
 
 
-# (label, B, S, H, hd, s0, dtype of r/k/v); the first is the serving path's
-# shape (rwkv6-1.6b prefill: batch 4, prompt 512, 32 heads of 64).
+# (label, B, S, H, hd, s0, dtype of r/k/v[, decay]); the first is the
+# serving path's shape (rwkv6-1.6b prefill: batch 4, prompt 512, 32 heads of
+# 64).  logw is drawn from -0.02 to -3 a step, or, with decay "model", as the
+# served model forms it: -exp(w0 + small) with w0 = -2.
 WKV_CASES = [
     ("rwkv6-1.6b prefill", 4, 512, 32, 64, False, torch.bfloat16),
     ("rwkv6-1.6b prefill f32", 4, 512, 32, 64, False, torch.float32),
@@ -379,7 +385,11 @@ WKV_CASES = [
     ("s0 in, S_last out", 4, 512, 32, 64, True, torch.bfloat16),
     ("decode step S=1", 4, 1, 32, 64, True, torch.bfloat16),
     ("S=4096", 4, 4096, 32, 64, False, torch.bfloat16),
+    ("ragged S=33", 4, 33, 32, 64, True, torch.bfloat16),
+    ("decode step S=1 batch 1", 1, 1, 32, 64, True, torch.bfloat16),
+    ("rwkv6 model decay", 4, 512, 32, 64, True, torch.bfloat16, "model"),
 ]
+WKV_DECODE_CASE = "decode step S=1"      # the decode kernel's row in the summary
 
 
 def wkv_bound(B, S, H, hd, s0, dtype, Q=32):
@@ -402,11 +412,15 @@ def phase_wkv_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, failed = [], []
-    for i, (label, B, S, H, hd, with_s0, dt) in enumerate(WKV_CASES):
-        main = i == 0
+    for i, (label, B, S, H, hd, with_s0, dt, *decay) in enumerate(WKV_CASES):
+        main = i == 0 or label == WKV_DECODE_CASE        # a row of the summary line
         r, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
                    for _ in range(3))
-        logw = -(0.02 + 2.98 * torch.rand((B, S, H, hd), generator=gen, device="cuda"))
+        if decay == ["model"]:
+            logw = -torch.exp(-2.0 + 0.01 * torch.randn((B, S, H, hd), generator=gen,
+                                                        device="cuda"))
+        else:
+            logw = -(0.02 + 2.98 * torch.rand((B, S, H, hd), generator=gen, device="cuda"))
         u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
         s0 = torch.randn((B, H, hd, hd), generator=gen, device="cuda") if with_s0 else None
         args = (r, k, v, logw, u, s0)
@@ -422,6 +436,7 @@ def phase_wkv_kernels():
         plain_ms = cuda_ms(lambda: wkv6_plain(*args), 5 if main else 1, warmup=1)
         bms, by, flops, nbytes = wkv_bound(B, S, H, hd, with_s0, dt)
         rows.append(dict(case=label, B=B, S=S, H=H, hd=hd, s0=with_s0,
+                         decay=decay[0] if decay else "uniform -0.02..-3",
                          dtype=str(dt).removeprefix("torch."), tol=TOL_STATE,
                          rel_err_y=err_y, rel_err_s_last=err_s,
                          max_abs_err_y=(y - py).abs().max().item(), ok=ok,
@@ -436,7 +451,7 @@ def phase_wkv_kernels():
     emit("kernels", kernel="wkv6_fwd", cases=rows)
     if failed:
         raise AssertionError(f"wkv6_fwd disagrees with its plain version: {failed}")
-    return rows[0]
+    return rows[0], next(row for row in rows if row["case"] == WKV_DECODE_CASE)
 
 
 def _rel(a, b) -> float:
@@ -504,7 +519,8 @@ SERVED = {
     "llama2-7b": lambda cfg, G: {"flash_attention_fwd": cfg.n_layers},
     "zamba2-7b": lambda cfg, G: {"ssd_scan_fwd": cfg.n_layers,
                                  "flash_attention_fwd": cfg.n_layers // cfg.attn_every},
-    "rwkv6-1.6b": lambda cfg, G: {"wkv6_fwd": cfg.n_layers * (G + 1)},
+    "rwkv6-1.6b": lambda cfg, G: {"wkv6_fwd": cfg.n_layers * (G + 1),
+                                  "wkv6_decode": cfg.n_layers * G},
 }
 
 
@@ -532,14 +548,17 @@ def phase_serve(arch: str) -> dict[str, int]:
     for fwd, plain in counters.values():
         fwd.launches = 0
         plain.calls = 0
+    wkv6_fwd = counters["wkv6_fwd"][0]
+    wkv6_fwd.decode_launches = 0
     t0 = time.perf_counter()
     out = engine.generate(tokens, steps=G)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = {name: fwd.launches for name, (fwd, _) in counters.items()}
+    launches["wkv6_decode"] = wkv6_fwd.decode_launches
     plain_calls = {name: plain.calls for name, (_, plain) in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    expected = {name: want.get(name, 0) for name in counters}
+    expected = {name: want.get(name, 0) for name in launches}
     if launches != expected or any(plain_calls.values()):
         raise AssertionError(f"{arch}: generate made {launches} kernel launches and "
                              f"{plain_calls} plain calls; expected {expected} and none")
@@ -598,7 +617,8 @@ def phase_serve(arch: str) -> dict[str, int]:
 
 # Device-side names of the port's kernels, as the profiler lists them.
 PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "ssd_fwd_bf16_kernel",
-                     "ssd_fwd_f32_kernel", "wkv6_fwd_kernel")
+                     "ssd_fwd_f32_kernel", "wkv6_fwd_bf16_kernel", "wkv6_fwd_f32_kernel",
+                     "wkv6_decode_kernel")
 
 
 def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
@@ -656,15 +676,20 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    mains = {"flash_attention_fwd": phase_kernels(), "ssd_scan_fwd": phase_ssd_kernels(),
-             "wkv6_fwd": phase_wkv_kernels()}
+    mains = {"flash_attention_fwd": phase_kernels(), "ssd_scan_fwd": phase_ssd_kernels()}
+    mains["wkv6_fwd"], mains["wkv6_decode"] = phase_wkv_kernels()
     phase_reference()
     by_path = {arch: phase_serve(arch) for arch in SERVED}
+    # wkv6_fwd's launch count holds every call of its wrapper; the S = 1 ones
+    # ran the decode kernel, reported as a kernel of its own.
+    for counts in by_path.values():
+        counts["wkv6_fwd"] -= counts["wkv6_decode"]
     sources = {
         "flash_attention_fwd": ("flash_attention_fwd.cu", "flash_attention.py:110",
                                 "max_abs_err_o"),
         "ssd_scan_fwd": ("ssd_scan_fwd.cu", "ssd_scan.py:77", "max_abs_err_y"),
         "wkv6_fwd": ("wkv6_fwd.cu", "wkv6.py:76", "max_abs_err_y"),
+        "wkv6_decode": ("wkv6_fwd.cu", "wkv6.py:76", "max_abs_err_y"),
     }
     kernels = []
     for kname, (src, tpu, err_key) in sources.items():

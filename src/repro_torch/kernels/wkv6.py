@@ -9,9 +9,16 @@ last chunk is masked, where the Pallas wrapper asserts that the chunk
 divides S).  y and the state are f32 whatever the dtype of r, k, v.
 
 ``wkv6_fwd`` dispatches by the device of its inputs: a CPU tensor goes to
-``wkv6_plain``; a CUDA tensor launches the kernel or raises.  Each function
-counts its own runs in a plain integer attribute (``wkv6_fwd.launches``,
-``wkv6_plain.calls``).
+``wkv6_plain``; a CUDA tensor launches a kernel or raises.  On the card, S = 1
+(a decode step) runs the decode kernel in either dtype; S > 1 runs the
+tensor-core kernel for bfloat16, which copies 16 bytes at a time, so r, k
+and v need 16-byte-aligned data and batch, time and head strides in
+multiples of 8 elements, and logw 16-byte-aligned data and strides in
+multiples of 4 (``_check`` raises otherwise; nothing is copied), and the
+CUDA-core kernel for float32, which takes any strides.  Each function counts
+its own runs in a plain integer attribute (``wkv6_fwd.launches``,
+``wkv6_plain.calls``): one launch per call of the wrapper, whichever kernel
+it runs; ``wkv6_fwd.decode_launches`` counts the S = 1 ones among them.
 """
 
 from __future__ import annotations
@@ -66,15 +73,20 @@ def wkv6_plain(r, k, v, logw, u, s0=None, *, chunk: int = CHUNK):
 wkv6_plain.calls = 0
 
 
-@functools.cache
-def _kernel_fn():
-    from repro_torch.kernels import build
-
-    fn = build.load("wkv6_fwd").wkv6_fwd
+def bind(lib: ctypes.CDLL):
+    """The C entry point ``wkv6_fwd`` of a built library, typed."""
+    fn = lib.wkv6_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 14 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel_fn():
+    from repro_torch.kernels import build
+
+    return bind(build.load("wkv6_fwd"))
 
 
 def _check(r, k, v, logw, u, s0):
@@ -103,26 +115,63 @@ def _check(r, k, v, logw, u, s0):
                          f"{s0.dtype} {tuple(s0.shape)}")
     if B == 0 or S == 0 or H == 0:
         raise ValueError(f"empty WKV: r {tuple(r.shape)}")
+    # The kernels read s0 and write S_last as float4; the bf16 kernel of S > 1
+    # copies r, k, v 16 bytes (8 elements) at a time and reads logw as
+    # float4.  A quick test first (it runs on every call); the one that names
+    # the fault only when it fails.
+    if s0 is not None and s0.data_ptr() % 16:
+        raise ValueError(f"s0: data must be 16-byte aligned; got address {s0.data_ptr():#x}")
+    if r.dtype == torch.bfloat16 and S > 1 and (
+            (r.data_ptr() | k.data_ptr() | v.data_ptr() | logw.data_ptr()) % 16
+            or any(s % 8 for t in (r, k, v) for s in t.stride()[:3])
+            or any(s % 4 for s in logw.stride()[:3])):
+        _check_bf16_alignment(r, k, v, logw)
+
+
+def _check_bf16_alignment(r, k, v, logw):
+    for name, t, m in (("r", r, 8), ("k", k, 8), ("v", v, 8), ("logw", logw, 4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned for the bfloat16 kernel; "
+                             f"got address {t.data_ptr():#x} (storage offset "
+                             f"{t.storage_offset()})")
+        for dim, what in ((0, "batch"), (1, "time"), (2, "head")):
+            # the stride of a size-1 dim is never used
+            if t.shape[dim] > 1 and t.stride(dim) % m:
+                raise ValueError(f"{name}: {what} stride {t.stride(dim)} is not a multiple "
+                                 f"of {m} elements (the bfloat16 kernel reads 16-byte rows)")
 
 
 def wkv6_fwd(r, k, v, logw, u, s0=None):
     """WKV forward, (y f32, S_last f32).  Shapes as :func:`wkv6_plain`.
 
-    On CUDA tensors this launches the Hopper kernel on the current stream
-    (r, k, v float32 or bfloat16, logw and u float32, last dims contiguous,
-    any other strides; hd in ``HEAD_DIMS``).  CPU tensors go to
-    :func:`wkv6_plain`, in the kernel's chunks of ``CHUNK``.  Any other
-    device raises."""
+    On CUDA tensors this launches a Hopper kernel on the current stream
+    (r, k, v float32 or bfloat16, logw and u float32, last dims contiguous;
+    hd in ``HEAD_DIMS``; s0 16-byte aligned; for bfloat16 at S > 1, r, k,
+    v with 16-byte-aligned data and batch, time and head strides in
+    multiples of 8 elements and logw with 16-byte-aligned data and strides
+    in multiples of 4, which ``time_mix``'s views have; float32, and S = 1,
+    take any other strides).
+    CPU tensors go to :func:`wkv6_plain`, in the kernel's chunks of
+    ``CHUNK``.  Any other device raises."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, logw, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_fwd runs on cuda or cpu tensors, not {r.device}")
     _check(r, k, v, logw, u, s0)
+    y, s_last = launch(_kernel_fn(), r, k, v, logw, u, s0)
+    wkv6_fwd.launches += 1
+    if r.shape[1] == 1:
+        wkv6_fwd.decode_launches += 1
+    return y, s_last
+
+
+def launch(fn, r, k, v, logw, u, s0):
+    """Allocate (y, S_last) and launch ``fn``, a ctypes binding of the C entry
+    point ``wkv6_fwd``, on checked CUDA tensors; raise if the launch fails."""
     B, S, H, hd = r.shape
     u = u.contiguous()
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     s_last = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    fn = _kernel_fn()
     with torch.cuda.device(r.device):
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
                 s0.data_ptr() if s0 is not None else None, y.data_ptr(), s_last.data_ptr(),
@@ -132,8 +181,8 @@ def wkv6_fwd(r, k, v, logw, u, s0=None):
                 torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wkv6_fwd kernel launch failed: cudaError {rc}")
-    wkv6_fwd.launches += 1
     return y, s_last
 
 
-wkv6_fwd.launches = 0
+wkv6_fwd.launches = 0            # every launch
+wkv6_fwd.decode_launches = 0     # the S = 1 ones (the decode kernel), counted in launches too
