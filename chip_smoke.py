@@ -27,8 +27,8 @@ exits nonzero without printing a result:
               the chunk kernels at S > 1 and the decode kernel at S = 1
   reference small llama (head dim 128), zamba2 (SSD scan, attention head dim
             112) and rwkv6 models served on the card and on the CPU from
-            the same weights: f32 logits of prefill and 3 decode steps agree
-            to 1e-4
+            the same weights: logits of prefill and 3 decode steps agree to
+            1e-4 in f32 and 3e-2 in bf16
   serve     llama2-7b, zamba2-7b and rwkv6-1.6b at full width (bf16 weights
             drawn on the card from a seed), one after the other, batch 4,
             prompt 512, 32 new tokens through ServeEngine.generate; kernel
@@ -42,6 +42,30 @@ exits nonzero without printing a result:
   trace     per served model: torch.profiler over one prefill and 8 decode
             steps, device time by kernel (the top 8, and each port kernel
             with its share of the busy time) and the device's idle share
+  bwd_kernels  flash_attention_bwd (dq, dk, dv) against flash_attention_bwd_plain
+            on the same inputs, max|Δ| / max|plain| of each at f32 2e-4 and
+            bf16 3e-2, at the llama2-7b and gpt2-1.5b train shapes, ragged S,
+            Sq < Sk, a window, GQA 64:8 and every head dim; kernel ms by
+            CUDA-graph replay (eager beside it), plain ms, the bound (5
+            products a pair, 10 d operations, against the bytes of q, k, v,
+            o, do, dq, dk, dv, lse and delta) and SDPA's backward
+            (torch.autograd.grad of its output with the same do) as
+            library_ms
+  train_reference  the small llama trained 3 AdamW steps on the card and on
+            the CPU from the same weights and batches (batch 2, seq 100), as
+            is, with ga_steps=2 and with gc, in f32 (losses rel 1e-4, every
+            step-1 gradient rel 2e-4) and in bf16, which runs the backward's
+            tensor-core kernels (losses 3e-2, gradients 5e-2)
+  train     full width, batch 4, seq 512, 3 steps each, launches counted
+            over those steps: llama2-7b in bf16 through make_train_step with
+            ExecutionPlan(gc=True) and AdamW with bf16 moments on one fixed
+            batch (loss after the last step below the first; forward flash
+            2 x 32 x 3, backward 32 x 3), and gpt2-1.5b through
+            launch.train.train with its f32 AdamW (forward and backward 48 x
+            3); 0 plain calls; step ms, tokens/s, peak memory; then one
+            llama2-7b step under torch.profiler (flash forward and backward
+            shares of busy time, idle share), and one more timed in two
+            halves: forward + backward, then the optimizer update
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -67,6 +91,7 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}   # o: max|Δ| / max|plain| of
 TOL_LSE = 2e-4                                       # lse (f32 for every dtype): absolute
 TOL_SCAN = {torch.bfloat16: 3e-2, torch.float32: 2e-5}   # SSD y: max|Δ| / max|plain|
 TOL_STATE = 2e-5                                     # WKV6 y, and every state: relative
+TOL_REF = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # card vs CPU logits
 SEED = 0
 
 
@@ -198,6 +223,7 @@ def phase_build():
         return fn
 
     fa = int_fn("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 2)
+    fb = int_fn("flash_attention_bwd", "flash_attention_bwd_smem_bytes", 3)
     ssd = int_fn("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 3)
     ssd_occ = int_fn("ssd_scan_fwd", "ssd_scan_fwd_bf16_blocks_per_sm", 0)
     wkv = int_fn("wkv6_fwd", "wkv6_fwd_smem_bytes", 2)
@@ -206,6 +232,9 @@ def phase_build():
          smem_bytes={"flash_attention_fwd": {dt: {d: fa(d, code) for d in HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1),
                                                               ("float32", 0))},
+                     "flash_attention_bwd": {f"{dt} {kern}": {d: fb(d, code, k) for d in HEAD_DIMS}
+                                             for dt, code in (("bfloat16", 1), ("float32", 0))
+                                             for kern, k in (("dq", 0), ("dkdv", 1))},
                      "ssd_scan_fwd": {dt: {f"P={p},N={n}": ssd(p, n, code) for p, n in SHAPES}
                                       for dt, code in (("bfloat16", 1), ("float32", 0))},
                      "wkv6_fwd": {dt: {d: wkv(d, code) for d in WKV_DIMS}
@@ -301,6 +330,100 @@ def phase_kernels():
     emit("kernels", kernel="flash_attention_fwd", cases=rows)
     if failed:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {failed}")
+    return rows[0]
+
+
+# (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype); the first is the
+# llama2-7b train path's shape (batch 4, seq 512), the third gpt2-1.5b's.
+BWD_CASES = [
+    ("llama2-7b train", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16),
+    ("llama2-7b train f32", 4, 512, 512, 32, 32, 128, True, 0, torch.float32),
+    ("gpt2-1.5b train d=64", 4, 512, 512, 25, 25, 64, True, 0, torch.bfloat16),
+    ("ragged S=17", 2, 17, 17, 8, 8, 128, True, 0, torch.bfloat16),
+    ("ragged S=65 f32", 2, 65, 65, 8, 8, 128, True, 0, torch.float32),
+    ("ragged S=100 d=64", 2, 100, 100, 8, 8, 64, True, 0, torch.bfloat16),
+    ("Sq < Sk (128 after 512)", 2, 128, 640, 8, 8, 128, True, 0, torch.bfloat16),
+    ("window 96, GQA 8:2", 2, 512, 512, 8, 2, 128, True, 96, torch.bfloat16),
+    ("qwen2-72b GQA 64:8", 1, 256, 256, 64, 8, 128, True, 0, torch.bfloat16),
+    ("zamba2-7b shared block d=112", 2, 256, 256, 8, 8, 112, True, 0, torch.bfloat16),
+    ("gemma-2b MQA d=256", 2, 256, 256, 8, 1, 256, True, 0, torch.bfloat16),
+    ("d=256 f32", 1, 200, 200, 4, 2, 256, True, 0, torch.float32),
+    ("bidirectional", 2, 256, 256, 8, 8, 128, False, 0, torch.bfloat16),
+]
+
+
+def bwd_bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype):
+    """Attention backward: least time for the 5 products of length d a pair
+    of the band needs (S, dP, dq, dk, dv: 10 d operations), against the bytes
+    of q, o, do, dq, k, v, dk, dv (dtype) and lse, delta (f32)."""
+    flops = 10.0 * B * Hq * d * band_pairs(Sq, Sk, causal, window)
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * B * d * (4 * Sq * Hq + 4 * Sk * Hkv) + 2 * 4 * B * Hq * Sq
+    return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
+
+
+def phase_bwd_kernels():
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, failed = [], []
+    for i, (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dt) in enumerate(BWD_CASES):
+        main = i == 0
+        q, do = (torch.randn((B, Sq, Hq, d), generator=gen, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        args = (q, k, v, o, lse, do)
+        got = flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_plain(*args, **kw)
+        errs = {n: rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        max_abs = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        ok = max(errs.values()) <= TOL[dt] and finite(*got)
+        del got, want
+        reps = 20 if main else 5
+        kernel_ms_eager = cuda_ms(lambda: flash_attention_bwd(*args, **kw), reps)
+        kernel_ms = graph_ms(lambda: flash_attention_bwd(*args, **kw), reps)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(*args, **kw), 3 if main else 1,
+                           warmup=1)
+        # SDPA's backward on the same inputs, timed as a yardstick only: the
+        # gradient of its output with the same do (masks as in phase_kernels).
+        # A backward runs on its forward's stream, so forward and backward are
+        # captured together and the forward's own replay time is taken off.
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        plain_mask = not window and (Sq == Sk or not causal)
+        sdpa_kw = (dict(is_causal=causal) if plain_mask
+                   else dict(attn_mask=band_mask(Sq, Sk, causal, window)))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=Hq != Hkv, **sdpa_kw)
+
+        library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), reps)
+                      - graph_ms(sdpa, reps))
+        bms, by, flops, nbytes = bwd_bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dt)
+        rows.append(dict(case=label, B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, d=d, causal=causal,
+                         window=window, dtype=str(dt).removeprefix("torch."), tol=TOL[dt],
+                         rel_err=errs, max_abs_err=max_abs, ok=ok, kernel_ms=kernel_ms,
+                         kernel_ms_eager=kernel_ms_eager, plain_ms=plain_ms,
+                         library_ms=library_ms, kernel_vs_library=kernel_ms / library_ms,
+                         library="sdpa backward " + ("is_causal" if plain_mask else "attn_mask"),
+                         bound_ms=bms, bound_by=by, x_bound=kernel_ms / bms,
+                         gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                         tflops=flops / kernel_ms / 1e9))
+        if not ok:
+            failed.append(label)
+        del q, k, v, o, lse, do, args, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    emit("bwd_kernels", kernel="flash_attention_bwd", cases=rows)
+    if failed:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {failed}")
     return rows[0]
 
 
@@ -480,28 +603,94 @@ def phase_reference():
 
     out, failed = {}, []
     for arch, (what, cut) in REFERENCE.items():
-        cfg = configs.get(arch).with_(vocab_size=512, dtype="float32", **cut)
-        cpu, gpu = build(cfg, device="cpu", seed=SEED), build(cfg, device="cuda")
-        pc = cpu.init()
-        pg = gpu.load({k: v.cuda() for k, v in pc.state_dict().items()})
-        toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size,
-                                                                     (2, 100)))
-        cc, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
-        cg, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.cuda())
-        rel = [_rel(lg.cpu(), lc)]
-        nxt = lc.argmax(-1)
-        for _ in range(3):
-            cc, lc = cpu.decode_step(pc, cc, nxt)
-            cg, lg = gpu.decode_step(pg, cg, nxt.cuda())
-            rel.append(_rel(lg.cpu(), lc))
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).removeprefix("torch.")
+            cfg = configs.get(arch).with_(vocab_size=512, dtype=name, **cut)
+            cpu, gpu = build(cfg, device="cpu", seed=SEED), build(cfg, device="cuda")
+            pc = cpu.init()
+            pg = gpu.load({k: v.cuda() for k, v in pc.state_dict().items()})
+            toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (2, 100)))
+            cc, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
+            cg, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.cuda())
+            rel = [_rel(lg.cpu(), lc)]
             nxt = lc.argmax(-1)
-        out[arch] = {"cfg": f"{arch} widths cut to {what}, f32, prompt 100",
-                     "prefill_then_decode_rel": rel}
-        if max(rel) >= 1e-4:
-            failed.append(arch)
-    emit("reference", tol=1e-4, **out)
+            for _ in range(3):
+                cc, lc = cpu.decode_step(pc, cc, nxt)
+                cg, lg = gpu.decode_step(pg, cg, nxt.cuda())
+                rel.append(_rel(lg.cpu(), lc))
+                nxt = lc.argmax(-1)
+            out[f"{arch} {name}"] = {"cfg": f"{arch} widths cut to {what}, {name}, prompt 100",
+                                     "tol": TOL_REF[dt], "prefill_then_decode_rel": rel}
+            if max(rel) >= TOL_REF[dt]:
+                failed.append(f"{arch} {name}")
+    emit("reference", **out)
     if failed:
         raise AssertionError(f"card and CPU paths disagree: {failed}")
+
+
+# Card against CPU in training: bounds on the per-step loss and on every
+# leaf's step-1 gradient (max|card - CPU| / max|CPU|).  bf16 gradients carry
+# 2-4% rounding noise in either framework (tests/test_torch_train.py).
+TRAIN_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (3e-2, 5e-2)}
+
+
+def phase_train_reference():
+    """The small llama of REFERENCE trained 3 AdamW steps on the card and on
+    the CPU from the same weights and batches, under three plans, in f32 and
+    in bf16."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import ModelOpts, build
+    from repro_torch.parallel.plan import ExecutionPlan
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.step import make_train_step
+
+    what, cut = REFERENCE["llama2-7b"]
+    data = make_source(DataConfig(vocab_size=512, seq_len=100, global_batch=2, seed=SEED))
+    optcfg = OptConfig(lr=1e-3)
+    out, failed = {}, []
+    for dtype, (tol_loss, tol_grad) in TRAIN_TOL.items():
+        cfg = configs.get("llama2-7b").with_(vocab_size=512, dtype=dtype, **cut)
+        for label, plan in (("plain", ExecutionPlan()), ("ga_steps=2", ExecutionPlan(ga_steps=2)),
+                            ("gc", ExecutionPlan(gc=True))):
+            opts = ModelOpts(remat="full" if plan.gc else "none", loss_chunk=0)
+            cpu = build(cfg, device="cpu", seed=SEED, opts=opts)
+            gpu = build(cfg, device="cuda", opts=opts)
+            pc = cpu.init()
+            pg = gpu.load({k: v.cuda() for k, v in pc.state_dict().items()})
+            grads = []
+            for m, p in ((cpu, pc), (gpu, pg)):
+                loss, _ = m.loss(p, {"tokens": torch.from_numpy(data.batch(0)).long().to(m.device)})
+                loss.backward()
+                grads.append({n: t.grad.detach().cpu() for n, t in p.named_parameters()})
+                p.zero_grad(set_to_none=True)
+            grad_rel = {n: _rel(grads[1][n], g) for n, g in grads[0].items()}
+            sc, sg = opt_init(pc, optcfg), opt_init(pg, optcfg)
+            step_c, step_g = make_train_step(cpu, plan, optcfg), make_train_step(gpu, plan, optcfg)
+            loss_rel, losses = [], []
+            for i in range(3):
+                toks = torch.from_numpy(data.batch(i)).long()
+                pc, sc, mc = step_c(pc, sc, {"tokens": toks})
+                pg, sg, mg = step_g(pg, sg, {"tokens": toks.cuda()})
+                loss_rel.append(abs(mg["loss"].item() - mc["loss"].item()) / abs(mc["loss"].item()))
+                losses.append(mg["loss"].item())
+            worst = max(grad_rel, key=grad_rel.get)
+            out[f"{dtype} {label}"] = {"loss_rel": loss_rel, "losses": losses,
+                                       "step1_grad_rel_max": grad_rel[worst],
+                                       "step1_grad_rel_argmax": worst}
+            if (max(loss_rel) > tol_loss or grad_rel[worst] > tol_grad
+                    or not np.isfinite(losses).all()):
+                failed.append(f"{dtype} {label}")
+            del pg, sg, gpu, grads
+    # The backward ran on autograd's device thread, whose cuBLAS handle kept
+    # a workspace of its own: 32 MiB on every later phase's peak memory.
+    torch._C._cuda_clearCublasWorkspaces()
+    free_device_memory()
+    emit("train_reference", cfg=f"llama2-7b widths cut to {what}, batch 2, seq 100, "
+         "AdamW lr 1e-3, 3 steps", tol_loss_grad=TRAIN_TOL, **out)
+    if failed:
+        raise AssertionError(f"card and CPU training disagree: {failed}")
 
 
 def kernel_counters():
@@ -509,8 +698,24 @@ def kernel_counters():
 
     return {"flash_attention_fwd": (flash_attention.flash_attention_fwd,
                                     flash_attention.flash_attention_plain),
+            "flash_attention_bwd": (flash_attention.flash_attention_bwd,
+                                    flash_attention.flash_attention_bwd_plain),
             "ssd_scan_fwd": (ssd_scan.ssd_scan_fwd, ssd_scan.ssd_scan_plain),
             "wkv6_fwd": (wkv6.wkv6_fwd, wkv6.wkv6_plain)}
+
+
+def reset_counts(counters) -> None:
+    for fwd, plain in counters.values():
+        fwd.launches = 0
+        plain.calls = 0
+    counters["wkv6_fwd"][0].decode_launches = 0
+
+
+def read_counts(counters) -> tuple[dict[str, int], dict[str, int]]:
+    """(kernel launches, plain-version calls) since reset_counts."""
+    launches = {name: fwd.launches for name, (fwd, _) in counters.items()}
+    launches["wkv6_decode"] = counters["wkv6_fwd"][0].decode_launches
+    return launches, {name: plain.calls for name, (_, plain) in counters.items()}
 
 
 # Served at full width, one after the other: the launches each kernel must
@@ -545,18 +750,12 @@ def phase_serve(arch: str) -> dict[str, int]:
     counters = kernel_counters()
     want = SERVED[arch](cfg, G)
     torch.cuda.reset_peak_memory_stats()
-    for fwd, plain in counters.values():
-        fwd.launches = 0
-        plain.calls = 0
-    wkv6_fwd = counters["wkv6_fwd"][0]
-    wkv6_fwd.decode_launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     out = engine.generate(tokens, steps=G)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = {name: fwd.launches for name, (fwd, _) in counters.items()}
-    launches["wkv6_decode"] = wkv6_fwd.decode_launches
-    plain_calls = {name: plain.calls for name, (_, plain) in counters.items()}
+    launches, plain_calls = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     expected = {name: want.get(name, 0) for name in launches}
     if launches != expected or any(plain_calls.values()):
@@ -616,9 +815,19 @@ def phase_serve(arch: str) -> dict[str, int]:
 
 
 # Device-side names of the port's kernels, as the profiler lists them.
-PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "ssd_fwd_bf16_kernel",
-                     "ssd_fwd_f32_kernel", "wkv6_fwd_bf16_kernel", "wkv6_fwd_f32_kernel",
-                     "wkv6_decode_kernel")
+PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_bwd_dq",
+                     "flash_bwd_dkdv", "ssd_fwd_bf16_kernel", "ssd_fwd_f32_kernel",
+                     "wkv6_fwd_bf16_kernel", "wkv6_fwd_f32_kernel", "wkv6_decode_kernel")
+
+
+def device_kernels(prof) -> list[tuple[str, float, int]]:
+    """(name, device ms, count) of every kernel in a torch.profiler run,
+    longest first."""
+    kern = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    return sorted((k for k in kern if k[1] > 0), key=lambda k: -k[1])
 
 
 def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
@@ -643,13 +852,8 @@ def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
                     tok = logits.argmax(-1)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
-                for e in prof.key_averages()
-                if getattr(e, "device_type", None) is not None
-                and str(e.device_type).endswith("CUDA")]
-        kern = [k for k in kern if k[1] > 0]
+        kern = device_kernels(prof)
         busy = sum(ms for _, ms, _ in kern)
-        kern.sort(key=lambda k: -k[1])
         out[label] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms if kern else None,
                       "steps": 1 if label == "prefill" else steps,
@@ -661,6 +865,163 @@ def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
         del cache, logits
     emit("trace", arch=arch, note="device time from torch.profiler (CUPTI); profiler on, "
          "so wall times exceed the serve phase's", **out)
+
+
+# Trained at full width after the serve phases: the launches each kernel must
+# make over `n` train steps.  llama2-7b runs under gc (remat), so each layer's
+# forward runs twice: once in the forward, once recomputed in the backward.
+TRAINED = {
+    "llama2-7b train": lambda cfg, n: {"flash_attention_fwd": 2 * cfg.n_layers * n,
+                                       "flash_attention_bwd": cfg.n_layers * n},
+    "gpt2-1.5b train": lambda cfg, n: {"flash_attention_fwd": cfg.n_layers * n,
+                                       "flash_attention_bwd": cfg.n_layers * n},
+}
+
+
+def free_device_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def check_launches(path: str, cfg, steps: int, launches, plain_calls) -> None:
+    want = TRAINED[path](cfg, steps)
+    expected = {name: want.get(name, 0) for name in launches}
+    if launches != expected or any(plain_calls.values()):
+        raise AssertionError(f"{path}: {steps} steps made {launches} kernel launches and "
+                             f"{plain_calls} plain calls; expected {expected} and none")
+
+
+def phase_train_llama(steps: int = 3) -> dict[str, int]:
+    """llama2-7b, bf16, batch 4, seq 512, through make_train_step with
+    ExecutionPlan(gc=True) and AdamW with bf16 moments (f32 moments would
+    need 6.74e9 x 12 bytes = 80.9 GB), on one fixed batch."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.models import ModelOpts, build
+    from repro_torch.parallel.plan import ExecutionPlan
+    from repro_torch.train.optimizer import OptConfig, opt_init, opt_update
+    from repro_torch.train.step import make_train_step
+
+    path = "llama2-7b train"
+    cfg = configs.get("llama2-7b")
+    B, S = 4, 512
+    plan = ExecutionPlan(gc=True)
+    optcfg = OptConfig(lr=1e-3, moment_dtype="bfloat16")
+    free_device_memory()
+    model = build(cfg, device="cuda", seed=SEED, opts=ModelOpts(remat="full", loss_chunk=0))
+    params = model.init()
+    opt_state = opt_init(params, optcfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    step = make_train_step(model, plan, optcfg)
+    data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                  seed=SEED))
+    batch = {"tokens": torch.from_numpy(data.batch(0)).long().cuda()}
+
+    counters = kernel_counters()
+    reset_counts(counters)
+    times, losses, gnorms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+    launches, plain_calls = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(path, cfg, steps, launches, plain_calls)
+    with torch.no_grad():
+        final = model.loss(params, batch)[0].item()
+    step_ms = float(np.median(times[1:])) * 1e3
+    emit("train", path=path, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=n_params, dtype="bfloat16", batch=B, seq=S, plan=plan.strategy,
+         optimizer="adamw lr 1e-3, bf16 moments", steps=steps, losses=losses,
+         loss_after_last_step=final, grad_norms=gnorms, step_ms=step_ms,
+         step_ms_all=[t * 1e3 for t in times], tokens_per_s=B * S / step_ms * 1e3,
+         max_memory_allocated=peak, launches=launches, plain_calls=plain_calls)
+    if not (np.isfinite(losses).all() and np.isfinite(final) and final < losses[0]):
+        raise AssertionError(f"{path}: loss did not fall on one batch: {losses} -> {final}")
+    phase_train_trace(path, lambda: step(params, opt_state, batch))
+
+    # One step's two halves timed apart: forward + backward, then the update.
+    named = dict(params.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.loss(params, batch)[0].backward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt_update({n: p.grad for n, p in named.items()}, opt_state, params, optcfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    emit("train_split", path=path, forward_backward_ms=(t1 - t0) * 1e3,
+         optimizer_ms=(t2 - t1) * 1e3)
+    del params, opt_state, step, model, batch, metrics, named
+    free_device_memory()
+    return launches
+
+
+def phase_train_trace(path: str, run_step) -> None:
+    """torch.profiler over one train step: device time by kernel (the top
+    10), the flash forward and backward kernels' shares of the busy time,
+    and the device's idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = device_kernels(prof)
+    busy = sum(ms for _, ms, _ in kern)
+
+    def share(tag):
+        ms = sum(m for n, m, _ in kern if tag in n)
+        return {"ms": ms, "count": sum(c for n, _, c in kern if tag in n),
+                "share_of_busy": ms / busy if busy else None}
+
+    emit("train_trace", path=path, note="device time from torch.profiler (CUPTI), one step, "
+         "profiler on", wall_ms=wall_ms, device_busy_ms=busy,
+         idle_share=1 - busy / wall_ms if kern else None,
+         flash_fwd=share("flash_fwd_bf16_kernel"),
+         flash_bwd=share("flash_bwd_"),
+         top=[{"kernel": n[:90], "ms": ms, "count": c} for n, ms, c in kern[:10]])
+
+
+def phase_train_gpt2(steps: int = 3) -> dict[str, int]:
+    """gpt2-1.5b, bf16, batch 4, seq 512, through the launcher
+    (launch.train.train) with its own f32 AdamW; the step times are the
+    launcher's own (each step up to reading its loss)."""
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+
+    path = "gpt2-1.5b train"
+    cfg = configs.get("gpt2-1.5b")
+    B, S = 4, 512
+    free_device_memory()
+    counters = kernel_counters()
+    reset_counts(counters)
+    out = train(arch="gpt2-1.5b", reduced=False, batch=B, seq=S, steps=steps, seed=SEED,
+                log_every=1, device="cuda")
+    launches, plain_calls = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(path, cfg, steps, launches, plain_calls)
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    times = out["step_seconds"]
+    step_ms = float(np.median(times[1:])) * 1e3
+    emit("train", path=path, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=n_params, dtype="bfloat16", batch=B, seq=S, plan="DP",
+         optimizer="adamw lr 1e-3, f32 moments (the launcher's)", steps=steps,
+         losses=out["losses"], step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+         tokens_per_s=B * S / step_ms * 1e3, max_memory_allocated=peak,
+         launches=launches, plain_calls=plain_calls)
+    if not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"{path}: non-finite loss {out['losses']}")
+    del out
+    free_device_memory()
+    return launches
 
 
 def main() -> int:
@@ -680,16 +1041,26 @@ def main() -> int:
     mains["wkv6_fwd"], mains["wkv6_decode"] = phase_wkv_kernels()
     phase_reference()
     by_path = {arch: phase_serve(arch) for arch in SERVED}
+    # The training phases run after serving, so that the serve phases meet the
+    # allocator in the state they always have (their peaks compare to the byte).
+    mains["flash_attention_bwd"] = phase_bwd_kernels()
+    phase_train_reference()
+    by_path["llama2-7b train"] = phase_train_llama()
+    by_path["gpt2-1.5b train"] = phase_train_gpt2()
     # wkv6_fwd's launch count holds every call of its wrapper; the S = 1 ones
     # ran the decode kernel, reported as a kernel of its own.
     for counts in by_path.values():
         counts["wkv6_fwd"] -= counts["wkv6_decode"]
     sources = {
-        "flash_attention_fwd": ("flash_attention_fwd.cu", "flash_attention.py:110",
-                                "max_abs_err_o"),
-        "ssd_scan_fwd": ("ssd_scan_fwd.cu", "ssd_scan.py:77", "max_abs_err_y"),
-        "wkv6_fwd": ("wkv6_fwd.cu", "wkv6.py:76", "max_abs_err_y"),
-        "wkv6_decode": ("wkv6_fwd.cu", "wkv6.py:76", "max_abs_err_y"),
+        "flash_attention_fwd": ("flash_attention_fwd.cu",
+                                "src/repro/kernels/flash_attention.py:110", "max_abs_err_o"),
+        "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                "src/repro/models/flash.py:146 (an HLO backward, not Pallas)",
+                                "max_abs_err"),
+        "ssd_scan_fwd": ("ssd_scan_fwd.cu", "src/repro/kernels/ssd_scan.py:77",
+                         "max_abs_err_y"),
+        "wkv6_fwd": ("wkv6_fwd.cu", "src/repro/kernels/wkv6.py:76", "max_abs_err_y"),
+        "wkv6_decode": ("wkv6_fwd.cu", "src/repro/kernels/wkv6.py:76", "max_abs_err_y"),
     }
     kernels = []
     for kname, (src, tpu, err_key) in sources.items():
@@ -698,7 +1069,7 @@ def main() -> int:
             "name": kname,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": f"src/repro/kernels/{tpu}",
+            "replaces": tpu,
             "launches": sum(counts[kname] for counts in by_path.values()),
             "launches_by_path": {arch: counts[kname] for arch, counts in by_path.items()
                                  if counts[kname]},

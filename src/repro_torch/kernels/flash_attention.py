@@ -1,9 +1,16 @@
-"""Flash attention forward: the Hopper kernel and its plain PyTorch version.
+"""Flash attention forward and backward: the Hopper kernels and their plain
+PyTorch versions.
 
-Port of the Pallas TPU kernel ``repro.kernels.flash_attention`` (see
-``csrc/flash_attention_fwd.cu`` for the design, what bounds it on the card,
-and where it deliberately differs from the Pallas kernel: the ``Sk - Sq``
-causal offset, ragged lengths, strided (B,S,H,d) reads, and an lse output).
+The forward is the port of the Pallas TPU kernel
+``repro.kernels.flash_attention`` (see ``csrc/flash_attention_fwd.cu`` for
+the design, what bounds it on the card, and where it deliberately differs
+from the Pallas kernel: the ``Sk - Sq`` causal offset, ragged lengths,
+strided (B,S,H,d) reads, and an lse output).  The backward is the port of
+the FlashAttention-2 backward the JAX package writes at the HLO level,
+``repro.models.flash._vjp_bwd`` (see ``csrc/flash_attention_bwd.cu``):
+``flash_attention_bwd`` gives (dq, dk, dv) from q, k, v, the forward's o
+and lse, and do, and :class:`FlashAttention` ties the two together for
+autograd.
 
 ``flash_attention_fwd`` dispatches by the device of its inputs: a CPU tensor
 goes to ``flash_attention_plain``; a CUDA tensor launches the kernel or
@@ -11,9 +18,13 @@ raises.  bfloat16 runs the tensor-core kernel, which copies 16 bytes at a
 time, so its inputs need 16-byte-aligned data and batch, row and head
 strides that are multiples of 8 elements (``_check`` raises otherwise;
 nothing is copied); float32 runs the CUDA-core kernel, which takes any
-strides.  Each function counts its own runs in a plain integer attribute
-(``flash_attention_fwd.launches``, ``flash_attention_plain.calls``) so a run
-can show which path it took.
+strides.  The backward follows the same rule for q, k, v and do: bfloat16
+at head dim 64, 112 or 128 runs tensor-core kernels that copy 16 bytes at a
+time, and float32 (and bfloat16 at 256) CUDA-core kernels that take any
+strides.  Each function counts
+its own runs in a plain integer attribute (``flash_attention_fwd.launches``,
+``flash_attention_plain.calls``, ``flash_attention_bwd.launches``,
+``flash_attention_bwd_plain.calls``) so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import math
 import torch
 
 HEAD_DIMS = (64, 112, 128, 256)
+BWD_TC_HEAD_DIMS = (64, 112, 128)   # bf16 backward on the tensor cores
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -109,6 +121,15 @@ def _kernel_fn():
 
 
 def _check(q, k, v):
+    _check_qkv(q, k, v)
+    # bf16: cp.async moves 16 bytes (8 elements), so every row of every head
+    # must start on a 16-byte boundary.  A quick test of all three first (it
+    # runs on every call); the one that names the fault only when it fails.
+    if q.dtype == torch.bfloat16:
+        _check_bf16_alignment(q=q, k=k, v=v)
+
+
+def _check_qkv(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q, k, v must be (B,S,H,d); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -132,17 +153,14 @@ def _check(q, k, v):
         raise ValueError("the last dim of q, k and v must be contiguous")
     if B == 0 or Sq == 0 or k.shape[1] == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    # bf16: cp.async moves 16 bytes (8 elements), so every row of every head
-    # must start on a 16-byte boundary.  A quick test of all three first (it
-    # runs on every call); the one that names the fault only when it fails.
-    if q.dtype == torch.bfloat16 and (
-            (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16
-            or any(s % 8 for s in q.stride()[:3] + k.stride()[:3] + v.stride()[:3])):
-        _check_bf16_alignment(q, k, v)
 
 
-def _check_bf16_alignment(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_bf16_alignment(**tensors):
+    ptrs = [t.data_ptr() for t in tensors.values()]
+    strides = [st for t in tensors.values() for st in t.stride()[:3]]
+    if not (any(p % 16 for p in ptrs) or any(st % 8 for st in strides)):
+        return
+    for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: bfloat16 data must be 16-byte aligned; got "
                              f"address {t.data_ptr():#x} (storage offset "
@@ -193,3 +211,170 @@ def launch(fn, q, k, v, *, causal, window, scale):
 
 
 flash_attention_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, scale=None,
+                              block_q=128, block_k=128):
+    """The gradient of attention by explicit recompute from lse, in torch
+    ops: the same function as the backward kernel (not autograd of the
+    forward).  q, o, do: (B,Sq,Hq,d); k, v: (B,Sk,Hkv,d); lse: (B,Hq,Sq) f32.
+    Returns (dq, dk, dv) in the dtypes of q, k and v.  f32 math throughout:
+
+        delta = rowsum(do * o),  P = exp(scale q k^T - lse),
+        dS = P (do v^T - delta) scale,  dq = dS k,  dk = dS^T q,  dv = P^T do,
+
+    with dk and dv summed over the query heads of each GQA group; only tile
+    pairs that meet the causal/window band are visited."""
+    flash_attention_bwd_plain.calls += 1
+    B, Sq, Hq, d = q.shape
+    _, Sk, Hkv, dv = v.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    off = Sk - Sq
+    dev = q.device
+    qg = q.reshape(B, Sq, Hkv, G, d).float()
+    dog = do.reshape(B, Sq, Hkv, G, dv).float()
+    kf, vf = k.float(), v.float()
+    delta = (dog * o.reshape(B, Sq, Hkv, G, dv).float()).sum(-1).permute(0, 2, 3, 1)
+    lseg = lse.reshape(B, Hkv, G, Sq)
+    dq = torch.zeros((B, Sq, Hkv, G, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Sk, Hkv, d), dtype=torch.float32, device=dev)
+    dvv = torch.zeros((B, Sk, Hkv, dv), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, block_q):
+        q1 = min(q0 + block_q, Sq)
+        lo, hi = _band(q0, q1, Sq, Sk, causal, window)
+        qpos = off + torch.arange(q0, q1, device=dev)
+        qc, doc = qg[:, q0:q1], dog[:, q0:q1]
+        lse_c, dl_c = lseg[..., q0:q1, None], delta[..., q0:q1, None]
+        for k0 in range((lo // block_k) * block_k, hi, block_k):
+            k1 = min(k0 + block_k, Sk)
+            kc, vc = kf[:, k0:k1], vf[:, k0:k1]
+            s = torch.einsum("bqhgd,bshd->bhgqs", qc, kc) * scale
+            kpos = torch.arange(k0, k1, device=dev)
+            ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=dev)
+            if causal:
+                ok &= qpos[:, None] >= kpos[None, :]
+            if window:
+                ok &= qpos[:, None] - kpos[None, :] < window
+            # a row that sees no key has lse = -inf; all its entries are masked
+            p = torch.where(ok, torch.exp(s - lse_c), 0.0)
+            dp = torch.einsum("bqhgd,bshd->bhgqs", doc, vc)
+            ds = p * (dp - dl_c) * scale
+            dq[:, q0:q1] += torch.einsum("bhgqs,bshd->bqhgd", ds, kc)
+            dk[:, k0:k1] += torch.einsum("bhgqs,bqhgd->bshd", ds, qc)
+            dvv[:, k0:k1] += torch.einsum("bhgqs,bqhgd->bshd", p, doc)
+    return dq.reshape(B, Sq, Hq, d).to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+flash_attention_bwd_plain.calls = 0
+
+
+def bind_bwd(lib: ctypes.CDLL):
+    """The C entry point ``flash_attention_bwd`` of a built library, typed."""
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 15
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel_fn():
+    from repro_torch.kernels import build
+
+    return bind_bwd(build.load("flash_attention_bwd"))
+
+
+def _check_bwd(q, k, v, o, lse, do):
+    _check_qkv(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q {tuple(q.shape)} {q.dtype} on {q.device}; "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"the last dim of {name} must be contiguous")
+    B, Sq, Hq, _ = q.shape
+    if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(f"lse must be contiguous float32 ({B}, {Hq}, {Sq}) on {q.device}; "
+                         f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    if q.dtype == torch.bfloat16 and q.shape[3] in BWD_TC_HEAD_DIMS:
+        _check_bf16_alignment(q=q, k=k, v=v, do=do)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=None):
+    """Attention backward, (dq, dk, dv), from the forward's inputs, its o and
+    lse, and the output gradient do.
+
+    On CUDA tensors this launches the Hopper kernels (head dim 64, 112, 128
+    or 256; float32 or bfloat16; last dims contiguous; for bfloat16 at head
+    dim 64 to 128, 16-byte aligned data and strides in multiples of 8) on the
+    current stream.  do is made contiguous first: autograd may hand over any
+    layout.  CPU tensors go to :func:`flash_attention_bwd_plain`.  Any other
+    device raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                         scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
+    do = do.contiguous()
+    _check_bwd(q, k, v, o, lse, do)
+    out = launch_bwd(_bwd_kernel_fn(), q, k, v, o, lse, do, causal=causal, window=window,
+                     scale=scale)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+def launch_bwd(fn, q, k, v, o, lse, do, *, causal, window, scale):
+    """Allocate (dq, dk, dv) and the delta scratch and launch ``fn``, a
+    ctypes binding of the C entry point ``flash_attention_bwd``, on checked
+    CUDA tensors; raise if a launch fails."""
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dq = torch.empty((B, Sq, Hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, Hkv, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Sq, Sk, Hq, Hkv, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                *do.stride()[:3],
+                float(scale), int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError {rc}")
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(scale q k^T) v with a gradient: the forward runs
+    :func:`flash_attention_fwd` and keeps (q, k, v, o, lse); the backward
+    runs :func:`flash_attention_bwd` on them.  Both dispatch by device, so
+    CPU tensors take the plain versions and CUDA tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None

@@ -7,7 +7,9 @@ Every arch the port registers serves (``repro_torch.configs.base.ARCHS``:
 the dense decoders, zamba2-7b and rwkv6-1.6b).
 
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain path) and ``--seed`` (weights and prompts).
+``cpu`` runs the plain path) and ``--seed`` (weights and prompts).  The
+reduced configs (the default without ``--full``) run on the CPU only: the
+card refuses them up front.
 """
 
 from __future__ import annotations
@@ -31,11 +33,13 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from repro_torch import configs
+    from repro_torch.launch import launch_device
     from repro_torch.models import build
     from repro_torch.serve.engine import ServeEngine
 
+    device = launch_device(args.device, reduced=not args.full)
     cfg = configs.get(args.arch) if args.full else configs.get_reduced(args.arch)
-    model = build(cfg, device=args.device, seed=args.seed)
+    model = build(cfg, device=device, seed=args.seed)
     params = model.init()
     engine = ServeEngine(model, params, max_len=args.prompt_len + args.gen + 1)
     rng = np.random.default_rng(args.seed)

@@ -1,14 +1,19 @@
-"""Model API for the port: ``build(cfg, device=None, dtype=None, seed=0)``.
+"""Model API for the port: ``build(cfg, device=None, dtype=None, seed=0,
+opts=None)``.
 
-The torch twin of ``repro.models.api`` for serving, dispatched by family as
-the reference dispatches (dense decoder, hybrid Mamba-2 + shared attention,
+The torch twin of ``repro.models.api``, dispatched by family as the
+reference dispatches (dense decoder, hybrid Mamba-2 + shared attention,
 RWKV-6):
 
     init() -> params (an nn.Module, weights drawn on ``device`` from ``seed``)
     load(state) -> params (weights from ``repro_torch.convert``)
+    loss(params, batch {"tokens": (B,S)}) -> (scalar, metrics)   [train step]
     init_cache(batch, max_len) -> cache
     prefill(params, cache, tokens (B,S)) -> (cache, logits (B,V))
     decode_step(params, cache, tokens (B,)) -> (cache, logits (B,V))
+
+``loss`` is ported for the dense decoders; the hybrid and RWKV-6 losses need
+the SSD-scan and WKV6 backward kernels (ROADMAP B5, B6) and raise.
 
 ``device`` defaults to ``cuda``; with no card the build raises unless the
 caller asks for ``device="cpu"``.
@@ -21,8 +26,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import hybrid, nn, rwkv_model, transformer
+from repro_torch.models.transformer import ModelOpts
 
 
 def resolve_device(device) -> torch.device:
@@ -36,18 +42,27 @@ def resolve_device(device) -> torch.device:
 
 @dataclass(frozen=True)
 class Family:
-    """One family's functions: its parameter module and serving steps."""
+    """One family's functions: its parameter module, loss and serving steps."""
     module: type                  # module(cfg, device, dtype), with reset_parameters(gen)
+    loss: Callable                # (params, batch, cfg, opts) -> (loss, metrics)
     init_cache: Callable          # (cfg, batch, max_len, *, device, dtype) -> cache
     prefill: Callable             # (params, cache, tokens, cfg) -> (cache, logits)
     decode_step: Callable         # (params, cache, tokens, cfg) -> (cache, logits)
 
 
-DECODER = Family(transformer.Decoder, transformer.decoder_init_cache,
-                 transformer.decoder_prefill, transformer.decoder_decode_step)
-HYBRID = Family(hybrid.Hybrid, hybrid.hybrid_init_cache, hybrid.hybrid_prefill,
-                hybrid.hybrid_decode_step)
-RWKV = Family(rwkv_model.RWKV, rwkv_model.rwkv_init_cache, rwkv_model.rwkv_prefill,
+def _loss_later(item: str) -> Callable:
+    def loss(params, batch, cfg, opts):
+        raise NotImplementedError(f"{cfg.name}: training is not ported yet ({item})")
+    return loss
+
+
+DECODER = Family(transformer.Decoder, transformer.decoder_loss,
+                 transformer.decoder_init_cache, transformer.decoder_prefill,
+                 transformer.decoder_decode_step)
+HYBRID = Family(hybrid.Hybrid, _loss_later("the SSD-scan backward kernel: ROADMAP B5"),
+                hybrid.hybrid_init_cache, hybrid.hybrid_prefill, hybrid.hybrid_decode_step)
+RWKV = Family(rwkv_model.RWKV, _loss_later("the WKV6 backward kernel: ROADMAP B6"),
+              rwkv_model.rwkv_init_cache, rwkv_model.rwkv_prefill,
               rwkv_model.rwkv_decode_step)
 
 _LATER = (("n_experts", "MoE: ROADMAP A15"), ("mla", "MLA: ROADMAP A15"),
@@ -78,6 +93,7 @@ class Model:
     device: torch.device
     dtype: torch.dtype
     seed: int = 0
+    opts: ModelOpts = ModelOpts()
 
     @property
     def family(self) -> Family:
@@ -104,6 +120,26 @@ class Model:
         params.load_state_dict(state, strict=True)
         return params.eval()
 
+    def loss(self, params, batch: dict):
+        """(scalar loss, metrics) of a batch {"tokens": (B, S)}; differentiable."""
+        return self.family.loss(params, batch, self.cfg, self.opts)
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Allocation-free stand-ins (tensors on the ``meta`` device) for every
+        model input of a (shape x step-kind) cell; tokens are int64."""
+        B, S = shape.global_batch, shape.seq_len
+        dims = (B,) if shape.kind == "decode" else (B, S)
+        return {"tokens": torch.empty(dims, dtype=torch.long, device="meta")}
+
+    def dummy_batch(self, shape: ShapeConfig, gen: torch.Generator | None = None) -> dict:
+        """A batch of random token ids in [0, vocab) on the model's device,
+        from ``gen`` (seed 0 when not given)."""
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        return {k: torch.randint(0, self.cfg.vocab_size, spec.shape, generator=gen,
+                                 device=self.device, dtype=spec.dtype)
+                for k, spec in self.input_specs(shape).items()}
+
     def init_cache(self, batch: int, max_len: int) -> dict:
         return self.family.init_cache(self.cfg, batch, max_len, device=self.device,
                                       dtype=self.dtype)
@@ -117,7 +153,8 @@ class Model:
         return self.family.decode_step(params, cache, tokens, self.cfg)
 
 
-def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0) -> Model:
+def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0,
+          opts: ModelOpts | None = None) -> Model:
     family_of(cfg)
     dtype = nn.dtype_of(cfg.dtype) if dtype is None else dtype
-    return Model(cfg, resolve_device(device), dtype, seed)
+    return Model(cfg, resolve_device(device), dtype, seed, opts or ModelOpts())

@@ -1,9 +1,12 @@
 """Attention for the port: the torch twin of ``repro.models.attention``.
 
-``attention`` is the full-sequence (prefill) attention at the public layout
-(B,S,H,d).  It dispatches by device through the kernel wrapper: CUDA
-tensors run the Hopper flash-attention kernel, CPU tensors its plain tiled
-online-softmax version.  ``decode_attention`` (one query token against a
+``attention`` is the full-sequence (prefill and training) attention at the
+public layout (B,S,H,d).  It dispatches by device through the kernel
+wrappers: CUDA tensors run the Hopper flash-attention kernels, CPU tensors
+their plain tiled versions.  With grad enabled and an input that requires
+grad it goes through :class:`FlashAttention`, whose backward is the
+backward kernel; otherwise (serving, under ``torch.no_grad()``) it calls
+the forward alone.  ``decode_attention`` (one query token against a
 KV cache) is plain torch ops, as it is plain jnp in the reference.
 """
 
@@ -13,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_fwd
 
 NEG_INF = -1e30
 
@@ -22,6 +25,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
               scale: float | None = None) -> torch.Tensor:
     """q: (B,Sq,Hq,d); k, v: (B,Sk,Hkv,d) -> (B,Sq,Hq,d).  Query row i sits
     at key position Sk - Sq + i."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
     o, _ = flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
     return o
 

@@ -4,8 +4,9 @@ Plain functions on tensors, with the reference's conventions kept exactly:
 rmsnorm scales by ``(1 + gamma)`` in f32; layernorm normalises in f32 and
 casts back to the input's dtype; the gated FFN splits ``h`` into
 ``(u, g)`` and returns ``u * act(g)``; GELU is the tanh approximation
-(``jax.nn.gelu``'s default); RoPE rotates split halves with f32 angles.
-Weights are stored (in, out) as in the reference, so a layer is ``x @ w``.
+(``jax.nn.gelu``'s default); RoPE rotates split halves with f32 angles;
+the cross-entropy takes f32 logits.  Weights are stored (in, out) as in the
+reference, so a layer is ``x @ w``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def param(*shape, device, dtype) -> tnn.Parameter:
-    """An uninitialised, frozen parameter (serving never takes gradients)."""
-    return tnn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                         requires_grad=False)
+    """An uninitialised trainable parameter.  The serving entry points run
+    under ``torch.no_grad()``, so they build no graph."""
+    return tnn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -120,3 +121,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, emb)
+
+
+def cross_entropy_loss(logits_fn, hidden: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None, chunk: int = 0) -> torch.Tensor:
+    """Next-token CE, the masked mean of logsumexp(logits) - gold logit, with
+    the logits ``logits_fn(h) -> (..., V)`` cast to f32.
+
+    ``chunk`` > 0 (and dividing S, with S > chunk) evaluates the vocab
+    projection and the CE one sequence chunk at a time, as the reference's
+    ``lax.map`` does, so the whole (B, S, V) f32 logits tensor is never
+    formed at once in the forward."""
+    B, S, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+
+    def chunk_loss(h, y, m):
+        logits = logits_fn(h).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        return ((logz - gold) * m).sum(), m.sum()
+
+    if chunk and S > chunk and S % chunk == 0:
+        parts = [chunk_loss(hidden[:, c:c + chunk], labels[:, c:c + chunk],
+                            mask[:, c:c + chunk]) for c in range(0, S, chunk)]
+        tot = torch.stack([t for t, _ in parts]).sum()
+        cnt = torch.stack([n for _, n in parts]).sum()
+        return tot / cnt.clamp_min(1.0)
+    tot, cnt = chunk_loss(hidden, labels, mask)
+    return tot / cnt.clamp_min(1.0)

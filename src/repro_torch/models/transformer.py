@@ -1,11 +1,11 @@
 """Decoder-only transformer LM, dense branch: the torch twin of
-``repro.models.transformer`` for serving (prefill + decode).
+``repro.models.transformer`` for training (forward + loss) and serving
+(prefill + decode).
 
 Parameters live in ``nn.Module``s with the reference's names and (in, out)
 layouts; where the reference stacks layers on a leading axis and scans,
 the port keeps an ``nn.ModuleList`` and loops (``repro_torch.convert``
-unstacks).  MoE, MLA, MTP, the vision frontend and the training loss are
-later slices.
+unstacks).  MoE, MLA, MTP and the vision frontend are later slices.
 
 The KV cache is ``{"pos": int, "layers": {"k": (L,B,S,Hkv,hd), "v": ...}}``,
 allocated once by :func:`decoder_init_cache` and written IN PLACE by prefill
@@ -16,12 +16,29 @@ Sliding-window models keep a ring buffer of at most ``window`` slots.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import attention, decode_attention
+
+
+@dataclass(frozen=True)
+class ModelOpts:
+    """Runtime knobs (not architecture): the two of the reference's that act
+    in the port.  ``remat`` is "none" or "full" (each block's activations are
+    recomputed in the backward, by ``torch.utils.checkpoint``);
+    ``loss_chunk`` is the sequence chunk of the cross-entropy (0: one piece).
+    The reference's ``attn_schedule`` has no twin: the attention kernels
+    visit only the tiles of the causal/window band, which is what its
+    "triangle" schedule buys.  Its MoE and MTP knobs come with those
+    families (ROADMAP A15)."""
+    remat: str = "none"              # none | full
+    loss_chunk: int = 2048
 
 
 class Attention(tnn.Module):
@@ -137,6 +154,50 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, k_cache, v_cache, length: int
     v_cache[:, slot] = v[:, 0]
     o = decode_attention(q[:, 0], k_cache, v_cache, min(length + 1, Smax))
     return o.reshape(B, 1, -1) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+def block_apply(lp: Block, x, cfg: ModelConfig, positions):
+    """Pre-norm residual block over a full sequence."""
+    B, S, _ = x.shape
+    h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
+    q, k, v = qkv(lp.attn, h, cfg, positions)
+    o = attention(q, k, v, causal=True, window=cfg.sliding_window)
+    x = x + o.reshape(B, S, -1) @ lp.attn.wo
+    h = nn.rmsnorm(x, lp.ln2, cfg.norm_eps)
+    return x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
+
+
+def decoder_forward(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Hidden states (B, S, D) after the final norm.  Under ``remat="full"``
+    each block is recomputed in the backward (the port's form of the
+    reference's ``jax.checkpoint`` around the scanned block), so the
+    attention forward runs twice per layer."""
+    if opts.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={opts.remat!r}: the port takes 'none' or 'full'")
+    x = nn.embed_lookup(params.emb, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for lp in params.layers:
+        if opts.remat == "full":
+            x = checkpoint(block_apply, lp, x, cfg, positions, use_reentrant=False)
+        else:
+            x = block_apply(lp, x, cfg, positions)
+    return nn.rmsnorm(x, params.ln_f, cfg.norm_eps)
+
+
+def decoder_loss(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Next-token CE: labels are the tokens rolled left by one, the last
+    position masked.  Returns (loss, {"ce": loss})."""
+    tokens = batch["tokens"]
+    h = decoder_forward(params, batch, cfg, opts)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    loss = nn.cross_entropy_loss(params.logits, h, labels, mask, chunk=opts.loss_chunk)
+    return loss, {"ce": loss}
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,8 @@ def test_port_imports_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "assert len(mods) >= 15, mods\n"
+        "for sub in ('train', 'data', 'parallel'):\n"
+        "    assert any(m.startswith(f'repro_torch.{sub}.') for m in mods), (sub, mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -57,11 +59,29 @@ def test_build_without_card_raises_for_ssm_families(arch, monkeypatch):
     assert build(configs.get_reduced(arch), device="cpu").device.type == "cpu"
 
 
-def test_launcher_defaults_to_cuda(monkeypatch):
-    from repro_torch.launch import serve
+LAUNCHERS = {"serve": ["--arch", "llama2-7b", "--gen", "1", "--prompt-len", "4"],
+             "train": ["--arch", "llama2-7b", "--steps", "1", "--batch", "2", "--seq", "8"]}
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_launcher_defaults_to_cuda(launcher, monkeypatch):
+    import importlib
+    main = importlib.import_module(f"repro_torch.launch.{launcher}").main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--arch", "llama2-7b", "--gen", "1", "--prompt-len", "4"])
+        main(LAUNCHERS[launcher])
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_launcher_refuses_reduced_config_on_the_card(launcher, monkeypatch):
+    """On its defaults (a reduced config, head dim 16) on the card, a
+    launcher stops up front and names the two ways out, before it builds
+    anything or reaches a kernel's check."""
+    import importlib
+    main = importlib.import_module(f"repro_torch.launch.{launcher}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="--full .*--device cpu"):
+        main(LAUNCHERS[launcher])
 
 
 @pytest.mark.parametrize("arch", PORTED)

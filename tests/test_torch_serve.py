@@ -247,12 +247,14 @@ def test_hybrid_prompt_not_multiple_of_ssm_chunk(pair):
 
 
 @pytest.mark.gpu
-def test_serve_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_on_card_matches_cpu(dtype, cuda_device):
     """The kernel path on the card and the plain path on the CPU serve the
-    same logits (f32; head dim 128 so the kernel takes it)."""
+    same logits (head dim 128 so the kernel takes it; f32 at 1e-4, bf16 at
+    the CPU bf16 parity bound 3e-2)."""
     cfg = configs.get("llama2-7b").with_(n_layers=2, d_model=256, n_heads=2,
                                           n_kv_heads=2, d_ff=512, vocab_size=512,
-                                          dtype="float32")
+                                          dtype=dtype)
     cpu = build(cfg, device="cpu")
     gpu = build(cfg, device=cuda_device)
     pc = cpu.init()
@@ -260,22 +262,23 @@ def test_serve_on_card_matches_cpu(cuda_device):
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 100)).long()
     _, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
     _, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(cuda_device))
-    assert _rel(lg.cpu(), lc) < 1e-4
+    assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
-def test_ssm_families_on_card_match_cpu(arch, cuda_device):
+def test_ssm_families_on_card_match_cpu(arch, dtype, cuda_device):
     """The kernel paths (SSD scan and flash attention at head dim 112, or
     WKV6) on the card and the plain paths on the CPU serve the same logits,
-    prefill and decode, f32."""
+    prefill and decode (f32 at 1e-4, bf16 at 3e-2)."""
     cut = {"zamba2-7b": dict(n_layers=4, d_model=256, n_heads=2, n_kv_heads=2,
                              head_dim=112, d_ff=512, ssm_state=64, ssm_head_dim=64,
                              attn_every=2),
            "rwkv6-1.6b": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
                               d_ff=512, rwkv_head_dim=64, rwkv_lora_decay=16,
                               rwkv_lora_mix=16)}[arch]
-    cfg = configs.get(arch).with_(vocab_size=512, dtype="float32", **cut)
+    cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
     cpu = build(cfg, device="cpu")
     gpu = build(cfg, device=cuda_device)
     pc = cpu.init()
@@ -283,10 +286,10 @@ def test_ssm_families_on_card_match_cpu(arch, cuda_device):
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 100)).long()
     cc, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
     cg, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(cuda_device))
-    assert _rel(lg.cpu(), lc) < 1e-4
+    assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
     nxt = lc.argmax(-1)
     for _ in range(3):
         cc, lc = cpu.decode_step(pc, cc, nxt)
         cg, lg = gpu.decode_step(pg, cg, nxt.to(cuda_device))
-        assert _rel(lg.cpu(), lc) < 1e-4
+        assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
         nxt = lc.argmax(-1)

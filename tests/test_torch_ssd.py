@@ -43,7 +43,7 @@ def cuda_device():
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().cpu().numpy()
+        return x.detach().float().cpu().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
