@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_scan_fwd", "wkv6_fwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "ssd_scan_fwd", "ssd_scan_bwd",
+           "wkv6_fwd", "wkv6_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,6 +19,13 @@ strides that are multiples of 8 elements (``_check`` raises otherwise;
 nothing is copied); float32 runs the CUDA-core kernel, which takes any
 strides.  Each function counts its own runs in a plain integer attribute
 (``ssd_scan_fwd.launches``, ``ssd_scan_plain.calls``).
+
+The backward (the reference trains by autodiff of ``ssd_chunked``; it has
+no Pallas backward) is ``ssd_scan_bwd``: a CUDA kernel (``csrc/
+ssd_scan_bwd.cu``) for CUDA tensors, the explicit chunked
+``ssd_scan_bwd_plain`` for CPU tensors, counted in
+``ssd_scan_bwd.launches`` and ``ssd_scan_bwd_plain.calls``.
+:class:`SSDScan` is the autograd Function around the forward and it.
 """
 
 from __future__ import annotations
@@ -35,6 +42,12 @@ CHUNK = 64                       # the kernel's chunk; the plain version's defau
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _acc(t) -> torch.dtype:
+    """The plain versions' arithmetic: float32, or float64 for float64
+    inputs (as ``torch.autograd.gradcheck`` gives them)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def ssd_scan_plain(x, dt, A, B_, C, h0=None, *, chunk: int = CHUNK):
     """Chunked SSD scan in torch ops, the twin of ``mamba2.ssd_chunked``.
 
@@ -44,11 +57,12 @@ def ssd_scan_plain(x, dt, A, B_, C, h0=None, *, chunk: int = CHUNK):
     is padded with dt = 0 and x = B = C = 0, which leaves y and the state
     unchanged."""
     ssd_scan_plain.calls += 1
+    acc = _acc(x)
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     Q = min(chunk, S)
     pad = -S % Q
-    dA = (dt * A[None, None, :]).float()                     # (B,S,H), <= 0
+    dA = (dt * A[None, None, :]).to(acc)                     # (B,S,H), <= 0
     xdt = x * dt[..., None].to(x.dtype)
     if pad:
         xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
@@ -57,14 +71,14 @@ def ssd_scan_plain(x, dt, A, B_, C, h0=None, *, chunk: int = CHUNK):
         C = F.pad(C, (0, 0, 0, pad))
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     m4 = mask[None, :, :, None]
-    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    h = (torch.zeros((Bb, H, P, N), dtype=acc, device=x.device)
+         if h0 is None else h0.to(acc))
     ys = []
     for c0 in range(0, S + pad, Q):
-        x_c = xdt[:, c0:c0 + Q].float()                       # (B,Q,H,P)
+        x_c = xdt[:, c0:c0 + Q].to(acc)                       # (B,Q,H,P)
         dA_c = dA[:, c0:c0 + Q]                               # (B,Q,H)
-        B_c = B_[:, c0:c0 + Q].float()                        # (B,Q,N)
-        C_c = C[:, c0:c0 + Q].float()
+        B_c = B_[:, c0:c0 + Q].to(acc)                        # (B,Q,N)
+        C_c = C[:, c0:c0 + Q].to(acc)
         cum = torch.cumsum(dA_c, dim=1)
         diff = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
         # the masked half has diff > 0: never exponentiate it
@@ -80,6 +94,100 @@ def ssd_scan_plain(x, dt, A, B_, C, h0=None, *, chunk: int = CHUNK):
 
 
 ssd_scan_plain.calls = 0
+
+
+def _revcumsum(t, dim: int):
+    """sum over i >= k along ``dim``, the backward of an inclusive cumsum."""
+    return torch.flip(torch.cumsum(torch.flip(t, (dim,)), dim), (dim,))
+
+
+def ssd_scan_bwd_plain(x, dt, A, B_, C, h0, dy, dh_last, *, chunk: int = CHUNK):
+    """Explicit chunked backward of :func:`ssd_scan_plain` in torch ops, f32
+    arithmetic: the algorithm the kernel follows, not a call to autograd.
+
+    dy: (B,S,H,P) gradient of y; dh_last: (B,H,P,N) gradient of h_last or
+    None (zero).  Returns (dx, ddt, dA, dB_, dC, dh0), each in its input's
+    dtype (dh0 f32 also when h0 is None).  Per chunk, with cum the inclusive
+    cumsum of dA = dt A, L_ij = exp(cum_i - cum_j) (i >= j), G = (C B^T) o L
+    and dh the gradient of the state at the chunk's end:
+      d(xdt)_j = sum_i G_ij dy_i + exp(cum_Q - cum_j) dh B_j
+      dB_j = sum_i L_ij (dy_i . xdt_j) C_i + exp(cum_Q - cum_j) xdt_j^T dh
+      dC_i = sum_j L_ij (dy_i . xdt_j) B_j + exp(cum_i) dy_i^T h
+      dh  <- exp(cum_Q) dh + sum_i exp(cum_i) dy_i^T C_i    (the carry, backward)
+    and d(dA) is the reverse cumsum of d(cum) within the chunk, d(cum) taking
+    the row sums less the column sums of G o (dy . xdt), the inter-chunk
+    term and the state terms.  Every exponent is <= 0, as in the forward.
+    As autograd does, d(xdt) is rounded to x's dtype before dx = d(xdt) dt
+    and ddt = sum_p d(xdt) x + d(dA) A are formed."""
+    ssd_scan_bwd_plain.calls += 1
+    acc = _acc(x)
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    pad = -S % Q
+    dev = x.device
+    dA = (dt * A[None, None, :]).to(acc)
+    xdt = x * dt[..., None].to(x.dtype)
+    xdt, dyf = (F.pad(t.to(acc), (0, 0, 0, 0, 0, pad)) for t in (xdt, dy))
+    dA = F.pad(dA, (0, 0, 0, pad))
+    Bf, Cf = (F.pad(t.to(acc), (0, 0, 0, pad)) for t in (B_, C))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    m4 = mask[None, :, :, None]
+    chunks = range(0, S + pad, Q)
+
+    # the chunk-start states, from h0
+    h = torch.zeros((Bb, H, P, N), dtype=acc, device=dev) if h0 is None \
+        else h0.to(acc)
+    starts = []
+    for c0 in chunks:
+        starts.append(h)
+        cum = torch.cumsum(dA[:, c0:c0 + Q], dim=1)
+        dend = torch.exp(cum[:, -1:] - cum)
+        h = h * torch.exp(cum[:, -1])[:, :, None, None] + torch.einsum(
+            "bjh,bjhp,bjn->bhpn", dend, xdt[:, c0:c0 + Q], Bf[:, c0:c0 + Q])
+
+    dh = torch.zeros((Bb, H, P, N), dtype=acc, device=dev) if dh_last is None \
+        else dh_last.to(acc)
+    dxdt, ddA = torch.empty_like(xdt), torch.empty_like(dA)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    for c0, h in zip(reversed(chunks), reversed(starts)):
+        x_c, dy_c = xdt[:, c0:c0 + Q], dyf[:, c0:c0 + Q]            # (B,Q,H,P)
+        B_c, C_c = Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]               # (B,Q,N)
+        cum = torch.cumsum(dA[:, c0:c0 + Q], dim=1)                 # (B,Q,H)
+        ecum, elast = torch.exp(cum), torch.exp(cum[:, -1])
+        dend = torch.exp(cum[:, -1:] - cum)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]              # (B,Q,Q,H) [i, j]
+        L = torch.where(m4, torch.exp(torch.where(m4, diff, 0.0)), 0.0)
+        cb = torch.einsum("bin,bjn->bij", C_c, B_c)
+        G = cb[..., None] * L
+        dx_dot = torch.einsum("bihp,bjhp->bijh", dy_c, x_c)         # dy_i . xdt_j
+        W = L * dx_dot
+        M = G * dx_dot
+        dhB = torch.einsum("bhpn,bjn->bjhp", dh, B_c)               # dh B_j
+        xdh = torch.einsum("bjhp,bhpn->bjhn", x_c, dh)              # xdt_j^T dh
+        dyh = torch.einsum("bihp,bhpn->bihn", dy_c, h)              # dy_i^T h
+        dxdt[:, c0:c0 + Q] = (torch.einsum("bijh,bihp->bjhp", G, dy_c)
+                              + dend[..., None] * dhB)
+        dB[:, c0:c0 + Q] = (torch.einsum("bijh,bin->bjn", W, C_c)
+                            + torch.einsum("bjh,bjhn->bjn", dend, xdh))
+        dC[:, c0:c0 + Q] = (torch.einsum("bijh,bjn->bin", W, B_c)
+                            + torch.einsum("bih,bihn->bin", ecum, dyh))
+        state = dend * torch.einsum("bjhn,bjn->bjh", xdh, B_c)      # d(cum_Q) share of row j
+        dcum = (M.sum(2) - M.sum(1) + ecum * torch.einsum("bihn,bin->bih", dyh, C_c)
+                - state)
+        dcum[:, -1] += elast * (h * dh).sum((2, 3)) + state.sum(1)
+        ddA[:, c0:c0 + Q] = _revcumsum(dcum, 1)
+        dh = dh * elast[:, :, None, None] + torch.einsum("bih,bihp,bin->bhpn", ecum, dy_c, C_c)
+
+    dxdt = dxdt[:, :S].to(x.dtype)
+    ddA = ddA[:, :S]
+    dx = dxdt * dt[..., None].to(x.dtype)
+    ddt = (dxdt.to(acc) * x.to(acc)).sum(-1) + ddA * A[None, None, :]
+    dA_grad = (ddA * dt).sum((0, 1))
+    return (dx, ddt, dA_grad, dB[:, :S].to(B_.dtype), dC[:, :S].to(C.dtype), dh)
+
+
+ssd_scan_bwd_plain.calls = 0
 
 
 def bind(lib: ctypes.CDLL):
@@ -198,3 +306,115 @@ def launch(fn, x, dt, A, B_, C, h0):
 
 
 ssd_scan_fwd.launches = 0
+
+
+def bind_bwd(lib: ctypes.CDLL):
+    """The C entry point ``ssd_scan_bwd`` of a built library, typed."""
+    fn = lib.ssd_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel_fn():
+    from repro_torch.kernels import build
+
+    return bind_bwd(build.load("ssd_scan_bwd"))
+
+
+def _check_bwd(x, dt, A, B_, C, h0, dy, dh_last):
+    _check(x, dt, A, B_, C, h0)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous {x.dtype} {tuple(x.shape)} on {x.device}; "
+                         f"got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    Bb, _, H, P = x.shape
+    N = B_.shape[-1]
+    if dh_last is not None and (tuple(dh_last.shape) != (Bb, H, P, N)
+                                or dh_last.dtype != torch.float32
+                                or not dh_last.is_contiguous() or dh_last.device != x.device):
+        raise ValueError(f"dh_last must be contiguous float32 {(Bb, H, P, N)} on {x.device}; "
+                         f"got {dh_last.dtype} {tuple(dh_last.shape)}")
+
+
+def ssd_scan_bwd(x, dt, A, B_, C, h0, dy, dh_last):
+    """SSD scan backward, (dx, ddt, dA, dB_, dC, dh0), from the forward's
+    inputs, the gradient dy of y and dh_last of h_last (None: zero).
+
+    On CUDA tensors this launches the backward kernel on the current stream
+    (the inputs as :func:`ssd_scan_fwd` takes them; dy is made contiguous
+    first, as autograd may hand over any layout; dh_last contiguous f32).
+    Its per-head partials of dB_ and dC and per-batch partials of dA are
+    summed here over that axis in a fixed order (no atomics, so the result
+    does not change from run to run).  CPU tensors go to
+    :func:`ssd_scan_bwd_plain`.  Any other device raises."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, A, B_, C, h0, dy, dh_last)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd runs on cuda or cpu tensors, not {x.device}")
+    dy = dy.contiguous()
+    _check_bwd(x, dt, A, B_, C, h0, dy, dh_last)
+    dx, ddt, dA_part, dB_part, dC_part, dh0 = launch_bwd(_bwd_kernel_fn(), x, dt, A, B_, C,
+                                                         h0, dy, dh_last)
+    ssd_scan_bwd.launches += 1
+    return (dx, ddt, dA_part.sum(0), dB_part.sum(2).to(B_.dtype),
+            dC_part.sum(2).to(C.dtype), dh0)
+
+
+def launch_bwd(fn, x, dt, A, B_, C, h0, dy, dh_last):
+    """Allocate the outputs (dx, ddt, dA per batch (B,H), dB_ and dC per head
+    (B,S,H,N) f32, dh0) and the chunk-start states' scratch (B,H,nc,P,N)
+    f32, and launch ``fn``, a ctypes binding of the C entry point
+    ``ssd_scan_bwd``, on checked CUDA tensors; raise if the launch fails."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    nc = -(-S // CHUNK)
+    A = A.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bb, S, H), **f32)
+    dA_part = torch.empty((Bb, H), **f32)
+    dB_part = torch.empty((Bb, S, H, N), **f32)
+    dC_part = torch.empty((Bb, S, H, N), **f32)
+    dh0 = torch.empty((Bb, H, P, N), **f32)
+    states = torch.empty((Bb, H, nc, P, N), **f32)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C.data_ptr(),
+                h0.data_ptr() if h0 is not None else None, dy.data_ptr(),
+                dh_last.data_ptr() if dh_last is not None else None, states.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(),
+                dC_part.data_ptr(), dh0.data_ptr(), Bb, S, H, P, N,
+                *x.stride()[:3], *dt.stride(), *B_.stride()[:2], *C.stride()[:2],
+                _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {rc}")
+    return dx, ddt, dA_part, dB_part, dC_part, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """(y, h_last) of the SSD scan with a gradient: the forward runs
+    :func:`ssd_scan_fwd` and keeps its inputs; the backward runs
+    :func:`ssd_scan_bwd` on them.  Both dispatch by device, so CPU tensors
+    take the plain versions and CUDA tensors the kernels.  A gradient of
+    h_last that autograd does not hand over (training never reads h_last)
+    is zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C, h0):
+        y, h_last = ssd_scan_fwd(x, dt, A, B_, C, h0)
+        ctx.save_for_backward(x, dt, A, B_, C, h0)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, A, B_, C, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, dA, dB, dC, dh0 = ssd_scan_bwd(x, dt, A, B_, C, h0, dy, dh_last)
+        return dx, ddt, dA, dB, dC, (dh0 if h0 is not None else None)

@@ -12,8 +12,8 @@ RWKV-6):
     prefill(params, cache, tokens (B,S)) -> (cache, logits (B,V))
     decode_step(params, cache, tokens (B,)) -> (cache, logits (B,V))
 
-``loss`` is ported for the dense decoders; the hybrid and RWKV-6 losses need
-the SSD-scan and WKV6 backward kernels (ROADMAP B5, B6) and raise.
+``loss`` is ported for all three families; its backward runs the flash
+attention, SSD-scan and WKV6 backward kernels on the card.
 
 ``device`` defaults to ``cuda``; with no card the build raises unless the
 caller asks for ``device="cpu"``.
@@ -50,20 +50,13 @@ class Family:
     decode_step: Callable         # (params, cache, tokens, cfg) -> (cache, logits)
 
 
-def _loss_later(item: str) -> Callable:
-    def loss(params, batch, cfg, opts):
-        raise NotImplementedError(f"{cfg.name}: training is not ported yet ({item})")
-    return loss
-
-
 DECODER = Family(transformer.Decoder, transformer.decoder_loss,
                  transformer.decoder_init_cache, transformer.decoder_prefill,
                  transformer.decoder_decode_step)
-HYBRID = Family(hybrid.Hybrid, _loss_later("the SSD-scan backward kernel: ROADMAP B5"),
-                hybrid.hybrid_init_cache, hybrid.hybrid_prefill, hybrid.hybrid_decode_step)
-RWKV = Family(rwkv_model.RWKV, _loss_later("the WKV6 backward kernel: ROADMAP B6"),
-              rwkv_model.rwkv_init_cache, rwkv_model.rwkv_prefill,
-              rwkv_model.rwkv_decode_step)
+HYBRID = Family(hybrid.Hybrid, hybrid.hybrid_loss, hybrid.hybrid_init_cache,
+                hybrid.hybrid_prefill, hybrid.hybrid_decode_step)
+RWKV = Family(rwkv_model.RWKV, rwkv_model.rwkv_loss, rwkv_model.rwkv_init_cache,
+              rwkv_model.rwkv_prefill, rwkv_model.rwkv_decode_step)
 
 _LATER = (("n_experts", "MoE: ROADMAP A15"), ("mla", "MLA: ROADMAP A15"),
           ("mtp_depth", "MTP: ROADMAP A15"), ("enc_layers", "encoder-decoder: ROADMAP A18"))

@@ -1,4 +1,5 @@
-"""Zamba2-style hybrid: the torch twin of ``repro.models.hybrid`` for serving.
+"""Zamba2-style hybrid: the torch twin of ``repro.models.hybrid`` for training
+(forward + loss) and serving (prefill + decode).
 
 A Mamba-2 backbone with one parameter-SHARED attention + MLP block, applied
 after SSM layer i when ``i % attn_every == attn_every - 1``.  Each of those
@@ -15,11 +16,13 @@ from __future__ import annotations
 
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2, nn
 from repro_torch.models.attention import attention
-from repro_torch.models.transformer import Block, attn_decode, qkv, ring_write
+from repro_torch.models.transformer import (Block, ModelOpts, attn_decode, block_apply, qkv,
+                                            ring_write)
 
 
 def n_shared_apps(cfg: ModelConfig) -> int:
@@ -62,6 +65,44 @@ class Hybrid(tnn.Module):
             layer.ln.zero_()
             layer.mixer.reset_parameters(gen)
         self.shared.reset_parameters(gen)
+
+
+def _layer_apply(lp: SSMLayer, shared: Block, x, cfg: ModelConfig, positions,
+                 with_shared: bool):
+    """One SSM layer over a full sequence, then the shared block where it
+    applies: the unit the reference checkpoints under ``remat="full"``."""
+    x = x + mamba2.mamba2_apply(lp.mixer, nn.rmsnorm(x, lp.ln, cfg.norm_eps), cfg)
+    return block_apply(shared, x, cfg, positions) if with_shared else x
+
+
+def hybrid_forward(params: Hybrid, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Hidden states (B, S, D) after the final norm.  Under ``remat="full"``
+    each SSM layer with its shared-block application is recomputed in the
+    backward (the reference's ``jax.checkpoint`` of its scanned body), so the
+    scan and the attention forward run twice."""
+    if opts.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={opts.remat!r}: the port takes 'none' or 'full'")
+    x = nn.embed_lookup(params.emb, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i, lp in enumerate(params.ssm_layers):
+        args = (lp, params.shared, x, cfg, positions, _applies_shared(cfg, i))
+        if opts.remat == "full":
+            x = checkpoint(_layer_apply, *args, use_reentrant=False)
+        else:
+            x = _layer_apply(*args)
+    return nn.rmsnorm(x, params.ln_f, cfg.norm_eps)
+
+
+def hybrid_loss(params: Hybrid, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Next-token CE, as ``transformer.decoder_loss``.  Returns (loss, {"ce"})."""
+    tokens = batch["tokens"]
+    h = hybrid_forward(params, batch, cfg, opts)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    loss = nn.cross_entropy_loss(lambda hh: hh @ params.head, h, labels, mask,
+                                 chunk=opts.loss_chunk)
+    return loss, {"ce": loss}
 
 
 def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,

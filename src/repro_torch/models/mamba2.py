@@ -1,4 +1,5 @@
-"""Mamba-2 (SSD) block: the torch twin of ``repro.models.mamba2`` for serving.
+"""Mamba-2 (SSD) block: the torch twin of ``repro.models.mamba2`` for serving
+and training.
 
 Layout as the reference: x (B,S,H,P) with H heads of head dim P, a scalar
 decay per head, B/C projections shared by the heads (n_groups = 1), state
@@ -6,7 +7,10 @@ size N.  Prefill (:func:`mamba2_apply`) runs its scan through
 ``kernels.ssd_scan.ssd_scan_fwd``: the Hopper kernel for CUDA tensors, its
 plain chunked version for CPU tensors, both in the kernel's chunks of 64
 (``cfg.ssm_chunk``, the reference's chunk, changes only the rounding, so the
-port does not read it).  Decode (:func:`mamba2_decode_step`)
+port does not read it).  With grad enabled and an input that requires grad
+(training) the scan goes through :class:`~repro_torch.kernels.ssd_scan.
+SSDScan`, whose backward is the SSD backward kernel; otherwise (serving,
+under ``torch.no_grad()``) it calls the forward alone.  Decode (:func:`mamba2_decode_step`)
 is the one-token recurrence in plain torch ops, as it is plain jnp in the
 reference.  A_log, D_skip and dt_bias are f32 whatever the model dtype, as
 in the reference.
@@ -19,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn as tnn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_fwd
 from repro_torch.models import nn
 
 
@@ -104,7 +108,11 @@ def mamba2_apply(p: Mamba2, x, cfg: ModelConfig, state: dict | None = None,
     A = -torch.exp(p.A_log)
     h0 = state["ssm"] if state is not None else None
     xh = xs.view(B, S, H, P)
-    y, h_last = ssd_scan_fwd(xh, dt, A, Bc, Cc, h0)
+    args = (xh, dt, A, Bc, Cc, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        y, h_last = SSDScan.apply(*args)
+    else:
+        y, h_last = ssd_scan_fwd(*args)
     y = y + p.D_skip[None, None, :, None].to(y.dtype) * xh
     y = nn.rmsnorm(y.reshape(B, S, di), p.gamma, cfg.norm_eps) * F.silu(z)
     out = y @ p.out_proj

@@ -1,11 +1,15 @@
-"""RWKV-6 "Finch" block: the torch twin of ``repro.models.rwkv6`` for serving.
+"""RWKV-6 "Finch" block: the torch twin of ``repro.models.rwkv6`` for serving
+and training.
 
 Time-mix with data-dependent decay (LoRA-produced per-token w), 5-way
 token-shift interpolation (ddlerp), the per-head WKV recurrence and a
 squared-ReLU channel-mix.  The WKV runs through ``kernels.wkv6.wkv6_fwd``
 for every S, the single token of a decode step included, as the reference
 routes decode through ``wkv_chunked``: the Hopper kernel for CUDA tensors,
-its plain chunked version for CPU tensors.  w0, u and the group-norm gain
+its plain chunked version for CPU tensors.  With grad enabled and an input
+that requires grad (training) it goes through :class:`~repro_torch.kernels.
+wkv6.WKV6`, whose backward is the WKV6 backward kernel; otherwise (serving,
+under ``torch.no_grad()``) it calls the forward alone.  w0, u and the group-norm gain
 and bias are f32 whatever the model dtype, as in the reference.
 
 Recurrence per head (dk = dv = head_dim):
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn as tnn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.wkv6 import wkv6_fwd
+from repro_torch.kernels.wkv6 import WKV6, wkv6_fwd
 from repro_torch.models import nn
 
 MIX_NAMES = ("r", "k", "v", "w", "g")
@@ -124,7 +128,11 @@ def time_mix(p: TimeMix, x, cfg: ModelConfig, shift_last=None, wkv_state=None):
     v = (mixed["v"] @ p.wv).view(B, S, H, hd)
     g = F.silu(mixed["g"] @ p.wg)
     logw = -torch.exp(p.w0 + (torch.tanh(mixed["w"] @ p.decay_a) @ p.decay_b).float())
-    y, new_state = wkv6_fwd(r, k, v, logw.view(B, S, H, hd), p.u, wkv_state)
+    args = (r, k, v, logw.view(B, S, H, hd), p.u, wkv_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        y, new_state = WKV6.apply(*args)
+    else:
+        y, new_state = wkv6_fwd(*args)
     # per-head group norm, f32
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, unbiased=False, keepdim=True)

@@ -1,5 +1,5 @@
 """RWKV-6 language model (attention-free): the torch twin of
-``repro.models.rwkv_model`` for serving.
+``repro.models.rwkv_model`` for training (forward + loss) and serving.
 
 The cache is ``{"pos": int, "tm_shift": (L,B,D), "cm_shift": (L,B,D),
 "wkv": (L,B,H,hd,hd) f32}``, allocated once by :func:`rwkv_init_cache` and
@@ -11,9 +11,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn, rwkv6
+from repro_torch.models.transformer import ModelOpts
 
 
 class RWKVLayer(tnn.Module):
@@ -81,6 +83,39 @@ def _layer(lp: RWKVLayer, x, cfg: ModelConfig, state: dict):
     h = nn.layernorm(x, lp.ln2_g, lp.ln2_b, cfg.norm_eps)
     y, cm_shift = rwkv6.channel_mix(lp.cm, h, shift_last=state["cm_shift"])
     return x + y, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv}
+
+
+def _layer_train(lp: RWKVLayer, x, cfg: ModelConfig):
+    """One RWKV block over a full sequence from zero state (training)."""
+    return _layer(lp, x, cfg, {"tm_shift": None, "cm_shift": None, "wkv": None})[0]
+
+
+def rwkv_forward(params: RWKV, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Hidden states (B, S, D) after the final norm.  Under ``remat="full"``
+    each block is recomputed in the backward (the reference's
+    ``jax.checkpoint`` of its scanned body), so the WKV forward runs twice."""
+    if opts.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={opts.remat!r}: the port takes 'none' or 'full'")
+    x = nn.layernorm(nn.embed_lookup(params.emb, batch["tokens"]), params.ln0_g,
+                     params.ln0_b, cfg.norm_eps)
+    for lp in params.layers:
+        if opts.remat == "full":
+            x = checkpoint(_layer_train, lp, x, cfg, use_reentrant=False)
+        else:
+            x = _layer_train(lp, x, cfg)
+    return nn.layernorm(x, params.ln_f_g, params.ln_f_b, cfg.norm_eps)
+
+
+def rwkv_loss(params: RWKV, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Next-token CE, as ``transformer.decoder_loss``.  Returns (loss, {"ce"})."""
+    tokens = batch["tokens"]
+    h = rwkv_forward(params, batch, cfg, opts)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    loss = nn.cross_entropy_loss(lambda hh: hh @ params.head, h, labels, mask,
+                                 chunk=opts.loss_chunk)
+    return loss, {"ce": loss}
 
 
 def _stack_pass(params: RWKV, cache: dict, x, cfg: ModelConfig):

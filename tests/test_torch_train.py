@@ -15,7 +15,16 @@
   attention projections carry the rounding of both frameworks: on these
   inputs JAX's own bf16 gradients lie up to 3.7e-2 (max|Δ| / max|f32|) from
   the f32 gradients of the same weights, and the port's up to 3.9e-2, so
-  the two differ by up to 3.9e-2 without either being wrong.
+  the two differ by up to 3.9e-2 without either being wrong.  The SSM
+  families (zamba2-7b, rwkv6-1.6b) are noisier in bf16: JAX's own bf16
+  gradients lie up to 1.1e-1 (zamba2, A_log) and 3.4e-1 (rwkv6) from the
+  f32 gradients at the same weights, the port's up to 7.5e-2 and 4.5e-1,
+  and the two frameworks' up to 1.9e-1 and 2.5e-1 from each other (eager
+  torch rounds every op to bf16, where XLA fuses elementwise chains at
+  higher precision: with --xla_allow_excess_precision=false JAX's rwkv6
+  gradients lie as far from f32 as the port's).  So there each bf16
+  gradient is held to JAX's at 5e-2 plus twice JAX's own distance from the
+  f32 gradient of the same weights on that leaf.
 * ``gpu``: the backward kernel against its plain version on the card, and a
   3-step train of a cut llama on the card against the CPU.
 """
@@ -190,7 +199,8 @@ def test_opt_update_matches_jax(name, wd, moment_dtype):
 # Model.loss and its gradients
 # ---------------------------------------------------------------------------
 
-LOSS_ARCHS = ["llama2-7b", "gpt2-1.5b", "gemma-2b", "starcoder2-3b"]
+LOSS_ARCHS = ["llama2-7b", "gpt2-1.5b", "gemma-2b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b"]
+SSM_ARCHS = ("zamba2-7b", "rwkv6-1.6b")         # bf16 bound: see the module docstring
 TOL_LOSS = {"float32": 1e-4, "bfloat16": 3e-2}
 TOL_GRAD = {"float32": 2e-4, "bfloat16": 5e-2}     # bf16: see the module docstring
 
@@ -216,9 +226,20 @@ def _check_loss_and_grads(arch, dtype, jopts=None, topts=None, S=32):
     want = params_from_jax_numpy(jax.tree.map(np.asarray, jg), cfg)
     got = dict(tp.named_parameters())
     assert sorted(want) == sorted(got)
+    noise = {name: 0.0 for name in want}
+    if dtype == "bfloat16" and arch in SSM_ARCHS:
+        # JAX's own bf16 rounding error: its distance from the f32 gradient
+        # at the same (bf16) weights
+        jm32 = jbuild(jconfigs.get_reduced(arch).with_(dtype="float32"), jopts or JModelOpts())
+        jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+        (_, _), jg32 = jax.value_and_grad(jm32.loss, has_aux=True)(
+            jp32, {"tokens": jnp.asarray(toks)})
+        f32 = params_from_jax_numpy(jax.tree.map(np.asarray, jg32),
+                                    cfg.with_(dtype="float32"))
+        noise = {name: _rel(g, f32[name]) for name, g in want.items()}
     for name, g in want.items():
-        assert got[name].grad.dtype == TDT[dtype], name
-        assert _rel(got[name].grad, g) < TOL_GRAD[dtype], name
+        assert got[name].grad.dtype == got[name].dtype == want[name].dtype, name
+        assert _rel(got[name].grad, g) < TOL_GRAD[dtype] + 2 * noise[name], name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -235,13 +256,14 @@ def test_loss_options_match_jax(opts):
     _check_loss_and_grads("llama2-7b", "float32", JModelOpts(**opts), ModelOpts(**opts))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
-def test_ssm_family_losses_name_their_roadmap_item(arch):
-    cfg = configs.get_reduced(arch)
-    m = build(cfg, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP B[56]"):
-        m.loss(m.init(), {"tokens": toks})
+@pytest.mark.parametrize("opts", [dict(remat="full"), dict(loss_chunk=8)],
+                         ids=["remat", "loss_chunk"])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_loss_options_match_jax(arch, opts):
+    """The same for the hybrid and RWKV-6 losses: remat="full" checkpoints
+    one SSM layer with its shared-block application (zamba2) or one block
+    (rwkv6), as the reference's jax.checkpoint of its scanned body."""
+    _check_loss_and_grads(arch, "float32", JModelOpts(**opts), ModelOpts(**opts))
 
 
 def test_input_specs_and_dummy_batch():

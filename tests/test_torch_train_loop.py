@@ -98,17 +98,17 @@ def _port_arrays(params, opt_state) -> dict:
             **opt_state_to_jax_numpy(opt_state, flat=True)}
 
 
-def test_jax_checkpoint_resumes_in_port(tmp_path, float32_configs):
+def _jax_checkpoint_resumes_in_port(arch, tmp_path):
     from repro_torch.models import build
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.optimizer import OptConfig, opt_init
 
-    kw = dict(arch="llama2-7b", reduced=True, batch=4, seq=32)
+    kw = dict(arch=arch, reduced=True, batch=4, seq=32)
     full = jtrain(steps=6, log_every=1000, **kw)
     jtrain(steps=3, ckpt_dir=str(tmp_path / "ck"), ckpt_every=3, log_every=1000, **kw)
     saved = read_checkpoint(tmp_path / "ck" / "step_000000003")
 
-    cfg = configs.get_reduced("llama2-7b")
+    cfg = configs.get_reduced(arch)
     params = build(cfg, device="cpu").init()
     opt_state = opt_init(params, OptConfig())
     params, opt_state, meta = CheckpointManager(tmp_path / "ck").restore(params, opt_state)
@@ -123,18 +123,35 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, float32_configs):
     assert resumed["final_loss"] == pytest.approx(full["final_loss"], rel=1e-3)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_port_checkpoint_restores_in_jax(tmp_path, monkeypatch, dtype):
+def test_jax_checkpoint_resumes_in_port(tmp_path, float32_configs):
+    _jax_checkpoint_resumes_in_port("llama2-7b", tmp_path)
+
+
+# The SSM families' leaves that stay f32 beside the model dtype, and the
+# hybrid's shared block (restacked on a leading axis of 1 in the checkpoint).
+SSM_LEAVES = {"zamba2-7b": ("params/ssm_layers/mixer/A_log", "params/ssm_layers/mixer/D_skip",
+                            "params/ssm_layers/mixer/dt_bias", "opt/m/ssm_layers/mixer/A_log"),
+              "rwkv6-1.6b": ("params/layers/tm/w0", "params/layers/tm/u",
+                             "opt/v/layers/tm/u")}
+
+
+@pytest.mark.parametrize("arch", list(SSM_LEAVES))
+def test_jax_checkpoint_resumes_in_port_ssm(arch, tmp_path, float32_configs):
+    """As test_jax_checkpoint_resumes_in_port, for the hybrid and RWKV-6."""
+    _jax_checkpoint_resumes_in_port(arch, tmp_path)
+
+
+def _port_checkpoint_restores_in_jax(arch, dtype, tmp_path, monkeypatch):
     for mod in (jconfigs, configs):
         get = mod.get_reduced
         monkeypatch.setattr(mod, "get_reduced",
                             lambda arch, get=get: get(arch).with_(dtype=dtype))
-    kw = dict(arch="llama2-7b", reduced=True, batch=4, seq=32)
+    kw = dict(arch=arch, reduced=True, batch=4, seq=32)
     full = _cpu_train(steps=6, **kw)
     part = _cpu_train(steps=3, ckpt_dir=str(tmp_path / "ck"), ckpt_every=3, **kw)
 
     from repro.models import build as jbuild
-    jm = jbuild(jconfigs.get_reduced("llama2-7b"))
+    jm = jbuild(jconfigs.get_reduced(arch))
     jp = jm.init(jax.random.PRNGKey(1))
     jst = jopt_init(jp, JOptConfig(lr=1e-3))
     jp, jst, meta = JCheckpointManager(tmp_path / "ck").restore(jp, jst)
@@ -153,6 +170,26 @@ def test_port_checkpoint_restores_in_jax(tmp_path, monkeypatch, dtype):
     resumed = jtrain(steps=6, ckpt_dir=str(tmp_path / "ck"), log_every=1000, **kw)
     assert len(resumed["losses"]) == 3
     assert resumed["final_loss"] == pytest.approx(full["final_loss"], rel=1e-3)
+    return read_checkpoint(tmp_path / "ck" / "step_000000003")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_checkpoint_restores_in_jax(tmp_path, monkeypatch, dtype):
+    _port_checkpoint_restores_in_jax("llama2-7b", dtype, tmp_path, monkeypatch)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(SSM_LEAVES))
+def test_port_checkpoint_restores_in_jax_ssm(arch, dtype, tmp_path, monkeypatch):
+    """As test_port_checkpoint_restores_in_jax, for the hybrid and RWKV-6;
+    their f32 leaves (and moments) stay f32 in a bf16 run, and the hybrid's
+    shared block is stacked on a leading axis of 1."""
+    saved = _port_checkpoint_restores_in_jax(arch, dtype, tmp_path, monkeypatch)
+    for key in SSM_LEAVES[arch]:
+        assert saved[key].dtype == np.float32, key
+    if arch == "zamba2-7b":
+        assert saved["params/shared/attn/wq" + ("::bf16" if dtype == "bfloat16" else "")
+                     ].shape[0] == 1
 
 
 def test_checkpoint_manager_housekeeping(tmp_path):
