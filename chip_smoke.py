@@ -2,14 +2,22 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ssd-bwd-compare [OTHER.cu ...]
+
+The second form builds the SSD backward kernel from ssd_scan_bwd.cu and
+from each other version of it named (e.g. an earlier one), checks each in
+bf16 against ssd_scan_bwd_plain at the zamba2-7b train shape, times them
+in turns (CUDA-graph replays), then prints the card's name and power
+limit; nothing else runs.
 
 Phases, each printing one JSON line; a failing phase raises and the script
 exits nonzero without printing a result:
 
   device    card name and count, nvidia-smi name and power limit
-  build     nvcc build of every kernel source for sm_90a (ptxas report,
-            seconds, shared memory per block for both dtypes of flash and
-            SSD, bf16 SSD blocks per SM)
+  build     nvcc build of every kernel source for sm_90a (ptxas report:
+            registers and spills of each kernel; seconds; shared memory per
+            block for both dtypes of flash, SSD and the SSD backward; bf16
+            blocks per SM of the SSD forward and backward)
   kernels   each Hopper kernel against its plain PyTorch version on the
             same inputs, at its serving path's shape and around it, with
             kernel / plain (/ library) times and the bound (kernels and
@@ -65,8 +73,10 @@ exits nonzero without printing a result:
             (both compute in f32 but may round an f32 value that straddles a
             rounding boundary apart).  Also the plain backward against
             torch.autograd.grad of the plain forward on the card (same
-            bounds).  Kernel ms by CUDA-graph replay (the wrapper: kernel and
-            the fixed-order sums of its partials; eager beside it), plain ms,
+            bounds); the bf16 SSD backward run twice at the train shape must
+            agree bit for bit.  Kernel ms by CUDA-graph replay (the wrapper:
+            kernel and the fixed-order sums of its partials; eager beside
+            it), plain ms,
             the bound (the bytes read and written against the operations of
             the backward's products); no library call computes either
   train_reference  small llama, zamba2 and rwkv6 (REFERENCE) trained 3 AdamW
@@ -89,9 +99,9 @@ exits nonzero without printing a result:
             forward and backward 48 x 3; rwkv6: WKV6 forward and backward
             24 x 3); 0 plain calls; step ms, tokens/s, peak memory; then one
             llama2-7b and one zamba2-7b step under torch.profiler (the port
-            kernels' shares of busy time, idle share), and one more of each
-            timed in two halves: forward + backward, then the optimizer
-            update
+            kernels' shares of busy time, idle share), and a warm-up round
+            and SPLIT_ROUNDS more of each timed in two halves (medians):
+            forward + backward, then the optimizer update
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -254,7 +264,8 @@ def phase_build():
     ssd_occ = int_fn("ssd_scan_fwd", "ssd_scan_fwd_bf16_blocks_per_sm", 0)
     wkv = int_fn("wkv6_fwd", "wkv6_fwd_smem_bytes", 2)
     wkv_occ = int_fn("wkv6_fwd", "wkv6_fwd_bf16_blocks_per_sm", 0)
-    ssd_bwd = int_fn("ssd_scan_bwd", "ssd_scan_bwd_smem_bytes", 0)
+    ssd_bwd = int_fn("ssd_scan_bwd", "ssd_scan_bwd_smem_bytes", 2)
+    ssd_bwd_occ = int_fn("ssd_scan_bwd", "ssd_scan_bwd_bf16_blocks_per_sm", 1)
     wkv_bwd = int_fn("wkv6_bwd", "wkv6_bwd_smem_bytes", 0)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          smem_bytes={"flash_attention_fwd": {dt: {d: fa(d, code) for d in HEAD_DIMS}
@@ -267,8 +278,11 @@ def phase_build():
                                       for dt, code in (("bfloat16", 1), ("float32", 0))},
                      "wkv6_fwd": {dt: {d: wkv(d, code) for d in WKV_DIMS}
                                   for dt, code in (("bfloat16", 1), ("float32", 0))},
-                     "ssd_scan_bwd": ssd_bwd(), "wkv6_bwd": wkv_bwd()},
+                     "ssd_scan_bwd": {"bfloat16": ssd_bwd(1, 0), "bfloat16 states": ssd_bwd(1, 1),
+                                      "float32": ssd_bwd(0, 0)},
+                     "wkv6_bwd": wkv_bwd()},
          ssd_bf16_blocks_per_sm=ssd_occ(), wkv6_bf16_blocks_per_sm=wkv_occ(),
+         ssd_bwd_bf16_blocks_per_sm={"backward walk": ssd_bwd_occ(0), "states": ssd_bwd_occ(1)},
          libs={n: {"path": str(b.path.relative_to(Path(__file__).resolve().parent)),
                    "nvcc_s": round(b.seconds, 3), "cached": b.cached,
                    "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
@@ -698,6 +712,10 @@ SSD_BWD_CASES = [
     ("batch 1, h0 and dh_last", 1, 512, 112, True, torch.bfloat16),
 ]
 SSD_GRADS = ("dx", "ddt", "dA", "dB_", "dC", "dh0")
+SSD_SUMMED = ("dA", "dB_", "dC")
+# dx rounds d(xdt), then d(xdt) dt: a flip of the first moves the product by
+# up to two steps before the second rounding
+SSD_ROUNDED = {"dx": 3, "ddt": 0, "dB_": 1, "dC": 1}
 
 
 def ssd_bwd_bound(B, S, H, P, N, state, dtype, Q=64):
@@ -732,12 +750,16 @@ def phase_ssd_bwd_kernels():
         h0, dh = (torch.randn((B, H, P, N), generator=gen, device="cuda") if state else None
                   for _ in range(2))
         dy = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dt)
-        # dx rounds d(xdt), then d(xdt) dt: a flip of the first moves the
-        # product by up to two steps before the second rounding
         row = bwd_case(label, main, (x, dtv, A, Bm, Cm, h0, dy, dh), ssd_scan_bwd,
-                       ssd_scan_bwd_plain, ssd_scan_plain, SSD_GRADS, ("dA", "dB_", "dC"),
-                       {"dx": 3, "ddt": 0, "dB_": 1, "dC": 1}, dt,
-                       ssd_bwd_bound(B, S, H, P, N, state, dt))
+                       ssd_scan_bwd_plain, ssd_scan_plain, SSD_GRADS, SSD_SUMMED, SSD_ROUNDED,
+                       dt, ssd_bwd_bound(B, S, H, P, N, state, dt))
+        if main:
+            # no atomics: two runs on the same inputs agree bit for bit
+            args = (x, dtv, A, Bm, Cm, h0, dy, dh)
+            first, second = ssd_scan_bwd(*args), ssd_scan_bwd(*args)
+            row["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(first, second))
+            row["ok"] = row["ok"] and row["bitwise_repeatable"]
+            del first, second, args
         rows.append(dict(B=B, S=S, H=H, P=P, N=N, state=state, **row))
         if not row["ok"]:
             failed.append(label)
@@ -748,6 +770,96 @@ def phase_ssd_bwd_kernels():
     if failed:
         raise AssertionError(f"ssd_scan_bwd disagrees with its plain version: {failed}")
     return rows[0]
+
+
+def build_ssd_bwd_versions(others: list[Path]) -> dict:
+    """csrc/ssd_scan_bwd.cu and each other version of it named (e.g. an
+    earlier one), built by nvcc all at once into
+    build/ssd_bwd_compare/<tag>/ (tag: "current", or the other source's
+    directory name).  tag -> (binding, bf16 blocks per SM of the backward
+    walk and the states kernel, or None, ptxas lines)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import bind_bwd
+
+    out = build.BUILD_DIR.parent / "ssd_bwd_compare"
+    sources = {"current": (build.CSRC / "ssd_scan_bwd.cu").read_text()}
+    for path in others:
+        sources[path.resolve().parent.name] = path.read_text()
+    procs = {}
+    for tag, text in sources.items():
+        (out / tag).mkdir(parents=True, exist_ok=True)
+        cu = out / tag / "ssd_scan_bwd.cu"
+        cu.write_text(text)
+        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out / tag / "lib.so"), str(cu)]
+        procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+    libs = {}
+    for tag, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        lib = ctypes.CDLL(str(out / tag / "lib.so"))
+        occ = None
+        if hasattr(lib, "ssd_scan_bwd_bf16_blocks_per_sm"):
+            fn = lib.ssd_scan_bwd_bf16_blocks_per_sm
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+            occ = [fn(0), fn(1)]
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+        libs[tag] = (bind_bwd(lib), occ, ptxas)
+    return libs
+
+
+def compare_ssd_bwd(others: list[Path], reps: int = 20) -> int:
+    """--ssd-bwd-compare: every version from build_ssd_bwd_versions against
+    ssd_scan_bwd_plain at the zamba2-7b train shape (the ssd_bwd_kernels
+    limits), then timed as CUDA-graph replays in turns (the versions in
+    order, then reversed), each with the fixed-order sums of its partials."""
+    from repro_torch.kernels.ssd_scan import _check_bwd, launch_bwd, ssd_scan_bwd_plain
+
+    name, smi = phase_device()
+    libs = build_ssd_bwd_versions(others)
+    label, B, S, H, state, dt = SSD_BWD_CASES[0]
+    P = N = 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    conv = torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda").to(dt)
+    x = conv[..., :H * P].view(B, S, H, P)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    dtv = 0.05 + 0.95 * torch.rand((B, S, H), generator=gen, device="cuda")
+    A = -(0.3 + 1.7 * torch.rand((H,), generator=gen, device="cuda"))
+    dy = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dt)
+    args = (x, dtv, A, Bm, Cm, None, dy, None)
+    _check_bwd(*args)
+    want = ssd_scan_bwd_plain(*args)
+    rows, failed = {}, []
+    for tag, (fn, occ, ptxas) in libs.items():
+        got = launch_bwd(fn, *args)
+        torch.cuda.synchronize()
+        errs, steps, bad = check_grads(got, want, SSD_GRADS, SSD_SUMMED, SSD_ROUNDED, dt)
+        again = launch_bwd(fn, *args)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rows[tag] = dict(version=tag, blocks_per_sm=occ, ptxas=ptxas,
+                         rel_err=errs, bf16_steps_apart=steps, failed=bad,
+                         bitwise_repeatable=same, ms=[])
+        if bad or not same:
+            failed.append(tag)
+        del got, again
+    order = list(libs)
+    for tag in order + order[::-1]:
+        fn = libs[tag][0]
+        rows[tag]["ms"].append(graph_ms(lambda: launch_bwd(fn, *args), reps))
+    bms, by, flops, nbytes = ssd_bwd_bound(B, S, H, P, N, state, dt)
+    for row in rows.values():
+        best = min(row["ms"])
+        emit("ssd_bwd_compare", case=label, B=B, S=S, H=H, **row, bound_ms=bms, bound_by=by,
+             x_bound=best / bms, tflops=flops / best / 1e9)
+    print(smi)
+    if failed:
+        print(f"chip_smoke: versions disagree with the plain version: {failed}", file=sys.stderr)
+        return 1
+    return 0
 
 
 # (label, B, S, H, s0 and dS_last, dtype); the first is the rwkv6-1.6b train
@@ -1077,7 +1189,8 @@ def phase_serve(arch: str) -> dict[str, int]:
 PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_bwd_dq",
                      "flash_bwd_dkdv", "ssd_fwd_bf16_kernel", "ssd_fwd_f32_kernel",
                      "wkv6_fwd_bf16_kernel", "wkv6_fwd_f32_kernel", "wkv6_decode_kernel",
-                     "ssd_bwd_kernel", "wkv6_bwd_kernel")
+                     "ssd_bwd_bf16_kernel", "ssd_bwd_states_kernel", "ssd_bwd_f32_kernel",
+                     "wkv6_bwd_kernel")
 
 
 def device_kernels(prof) -> list[tuple[str, float, int]]:
@@ -1146,7 +1259,8 @@ TRAINED = {
 # device-side names.
 TRACE_SHARES = {
     "llama2-7b train": {"flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
-    "zamba2-7b train": {"ssd_fwd": "ssd_fwd_bf16_kernel", "ssd_bwd": "ssd_bwd_kernel",
+    "zamba2-7b train": {"ssd_fwd": "ssd_fwd_bf16_kernel", "ssd_bwd": "ssd_bwd_",
+                        "ssd_bwd_states": "ssd_bwd_states_kernel",
                         "flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
 }
 
@@ -1165,12 +1279,16 @@ def check_launches(path: str, cfg, steps: int, launches, plain_calls) -> None:
                              f"{plain_calls} plain calls; expected {expected} and none")
 
 
+# Rounds of train_split timed after its warm-up round.
+SPLIT_ROUNDS = 3
+
+
 def phase_train_fixed(arch: str, steps: int = 3) -> dict[str, int]:
     """llama2-7b or zamba2-7b, bf16, batch 4, seq 512, through
     make_train_step with ExecutionPlan(gc=True) and AdamW with bf16 moments
     (f32 moments would need 6.74e9 x 12 bytes = 80.9 GB for llama2-7b), on
-    one fixed batch; then a profile of one step and one step timed in two
-    halves."""
+    one fixed batch; then a profile of one step, and a step's two halves
+    (forward + backward, the update) timed apart."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.models import ModelOpts, build
@@ -1220,18 +1338,26 @@ def phase_train_fixed(arch: str, steps: int = 3) -> dict[str, int]:
         raise AssertionError(f"{path}: loss did not fall on one batch: {losses} -> {final}")
     phase_train_trace(path, lambda: step(params, opt_state, batch), TRACE_SHARES[path])
 
-    # One step's two halves timed apart: forward + backward, then the update.
+    # One step's two halves timed apart: forward + backward, then the update;
+    # a warm-up round (it allocates the .grad tensors), then the median of
+    # SPLIT_ROUNDS rounds.
     named = dict(params.named_parameters())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.loss(params, batch)[0].backward()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    opt_update({n: p.grad for n, p in named.items()}, opt_state, params, optcfg)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    emit("train_split", path=path, forward_backward_ms=(t1 - t0) * 1e3,
-         optimizer_ms=(t2 - t1) * 1e3)
+    fwd_bwd, update = [], []
+    for _ in range(1 + SPLIT_ROUNDS):
+        for p in named.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.loss(params, batch)[0].backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt_update({n: p.grad for n, p in named.items()}, opt_state, params, optcfg)
+        torch.cuda.synchronize()
+        fwd_bwd.append((t1 - t0) * 1e3)
+        update.append((time.perf_counter() - t1) * 1e3)
+    emit("train_split", path=path, forward_backward_ms=float(np.median(fwd_bwd[1:])),
+         optimizer_ms=float(np.median(update[1:])), forward_backward_ms_all=fwd_bwd,
+         optimizer_ms_all=update)
     del params, opt_state, step, model, batch, metrics, named
     free_device_memory()
     return launches
@@ -1309,6 +1435,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--ssd-bwd-compare"]:
+        return compare_ssd_bwd([Path(a) for a in sys.argv[2:]])
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()

@@ -251,15 +251,21 @@ def _check_bf16_alignment(x, B_, C, h0):
         raise ValueError(f"h0: data must be 8-byte aligned for the bfloat16 kernel; got "
                          f"address {h0.data_ptr():#x}")
     for name, t in (("x", x), ("B_", B_), ("C", C)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: bfloat16 data must be 16-byte aligned; got "
-                             f"address {t.data_ptr():#x} (storage offset "
-                             f"{t.storage_offset()})")
-        for dim, what in ((0, "batch"), (1, "time"), (2, "head"))[:t.ndim - 1]:
-            # the stride of a size-1 dim is never used
-            if t.shape[dim] > 1 and t.stride(dim) % 8:
-                raise ValueError(f"{name}: {what} stride {t.stride(dim)} is not a "
-                                 f"multiple of 8 elements (bfloat16 takes 16-byte rows)")
+        _check_rows16(name, t)
+
+
+def _check_rows16(name, t):
+    """A bfloat16 tensor the kernels copy 16 bytes at a time: 16-byte-aligned
+    data, batch, time (and head) strides in multiples of 8 elements."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: bfloat16 data must be 16-byte aligned; got "
+                         f"address {t.data_ptr():#x} (storage offset "
+                         f"{t.storage_offset()})")
+    for dim, what in ((0, "batch"), (1, "time"), (2, "head"))[:t.ndim - 1]:
+        # the stride of a size-1 dim is never used
+        if t.shape[dim] > 1 and t.stride(dim) % 8:
+            raise ValueError(f"{name}: {what} stride {t.stride(dim)} is not a "
+                             f"multiple of 8 elements (bfloat16 takes 16-byte rows)")
 
 
 def ssd_scan_fwd(x, dt, A, B_, C, h0=None):
@@ -337,6 +343,13 @@ def _check_bwd(x, dt, A, B_, C, h0, dy, dh_last):
                                 or not dh_last.is_contiguous() or dh_last.device != x.device):
         raise ValueError(f"dh_last must be contiguous float32 {(Bb, H, P, N)} on {x.device}; "
                          f"got {dh_last.dtype} {tuple(dh_last.shape)}")
+    # bf16: dy is copied 16 bytes at a time like x, B_ and C, and dh_last is
+    # read as float pairs like h0.
+    if x.dtype == torch.bfloat16:
+        _check_rows16("dy", dy)
+        if dh_last is not None and dh_last.data_ptr() % 8:
+            raise ValueError(f"dh_last: data must be 8-byte aligned for the bfloat16 kernel; "
+                             f"got address {dh_last.data_ptr():#x}")
 
 
 def ssd_scan_bwd(x, dt, A, B_, C, h0, dy, dh_last):
@@ -345,8 +358,9 @@ def ssd_scan_bwd(x, dt, A, B_, C, h0, dy, dh_last):
 
     On CUDA tensors this launches the backward kernel on the current stream
     (the inputs as :func:`ssd_scan_fwd` takes them; dy is made contiguous
-    first, as autograd may hand over any layout; dh_last contiguous f32).
-    Its per-head partials of dB_ and dC and per-batch partials of dA are
+    first, as autograd may hand over any layout, and in bfloat16 it needs
+    16-byte-aligned data like x; dh_last contiguous f32).  Its per-head
+    partials of dB_ and dC and per-batch partials of dA are
     summed here over that axis in a fixed order (no atomics, so the result
     does not change from run to run).  CPU tensors go to
     :func:`ssd_scan_bwd_plain`.  Any other device raises."""
@@ -356,18 +370,17 @@ def ssd_scan_bwd(x, dt, A, B_, C, h0, dy, dh_last):
         raise ValueError(f"ssd_scan_bwd runs on cuda or cpu tensors, not {x.device}")
     dy = dy.contiguous()
     _check_bwd(x, dt, A, B_, C, h0, dy, dh_last)
-    dx, ddt, dA_part, dB_part, dC_part, dh0 = launch_bwd(_bwd_kernel_fn(), x, dt, A, B_, C,
-                                                         h0, dy, dh_last)
+    grads = launch_bwd(_bwd_kernel_fn(), x, dt, A, B_, C, h0, dy, dh_last)
     ssd_scan_bwd.launches += 1
-    return (dx, ddt, dA_part.sum(0), dB_part.sum(2).to(B_.dtype),
-            dC_part.sum(2).to(C.dtype), dh0)
+    return grads
 
 
 def launch_bwd(fn, x, dt, A, B_, C, h0, dy, dh_last):
     """Allocate the outputs (dx, ddt, dA per batch (B,H), dB_ and dC per head
     (B,S,H,N) f32, dh0) and the chunk-start states' scratch (B,H,nc,P,N)
-    f32, and launch ``fn``, a ctypes binding of the C entry point
-    ``ssd_scan_bwd``, on checked CUDA tensors; raise if the launch fails."""
+    f32, launch ``fn``, a ctypes binding of the C entry point ``ssd_scan_bwd``,
+    on checked CUDA tensors, raise if the launch fails, and return the six
+    gradients with the partials summed in a fixed order."""
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     nc = -(-S // CHUNK)
@@ -390,7 +403,8 @@ def launch_bwd(fn, x, dt, A, B_, C, h0, dy, dh_last):
                 _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {rc}")
-    return dx, ddt, dA_part, dB_part, dC_part, dh0
+    return (dx, ddt, dA_part.sum(0), dB_part.sum(2).to(B_.dtype), dC_part.sum(2).to(C.dtype),
+            dh0)
 
 
 ssd_scan_bwd.launches = 0

@@ -9,14 +9,20 @@
   summed over batch, time or heads (dA, dB_, dC, du) and for dlogw (a
   reverse cumsum of differences); bf16 3e-2 (both sides round the
   gradients of bf16 inputs, and d(xdt) before dx and ddt, to bf16).
+* The bf16 SSD backward kernel's arithmetic (``csrc/ssd_scan_bwd.cu``,
+  namespace tc: bf16 operands, hi + lo splits of the f32 ones, f32
+  accumulation) emulated in torch ops on the CPU and held to
+  ``ssd_scan_bwd_plain`` at the limits the card's checks use; without any
+  one of its splits it misses them.
 * ``SSDScan`` and ``WKV6`` under ``torch.autograd.gradcheck`` in float64
   (the plain versions compute in float64 for float64 inputs), over two
   chunks, the second ragged.
 * The launcher trains the reduced zamba2-7b and rwkv6-1.6b on the CPU.
 * ``gpu``: each backward kernel against its plain version on the card, at
   the train paths' shapes (zamba2-7b: x, B, C views of the conv output;
-  rwkv6-1.6b: views of the projections) and around them; and 3 AdamW steps
-  of cut zamba2 / rwkv6 configs on the card against the CPU.
+  rwkv6-1.6b: views of the projections) and around them; the bf16 SSD
+  backward twice on the same inputs, bit for bit; and 3 AdamW steps of cut
+  zamba2 / rwkv6 configs on the card against the CPU.
 
 Loss and gradients of the whole models against ``jax.value_and_grad`` are in
 tests/test_torch_train.py (``LOSS_ARCHS``).
@@ -27,11 +33,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.models import mamba2 as jmamba2
 from repro.models import rwkv6 as jrwkv6
-from repro_torch.kernels.ssd_scan import (SSDScan, ssd_scan_bwd, ssd_scan_bwd_plain,
-                                          ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (SSDScan, _check_bwd, ssd_scan_bwd,
+                                          ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.kernels.wkv6 import WKV6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -153,6 +160,31 @@ def test_ssd_backward_dispatches_by_device():
     with pytest.raises(ValueError, match="cuda or cpu"):
         ssd_scan_bwd(*(a.to("meta") if a is not None else None for a in args))
 
+
+
+@pytest.mark.parametrize("case,match", [
+    ("dy_offset", "dy: bfloat16 data must be 16-byte aligned"),
+    ("dh_last_offset", "dh_last: data must be 8-byte aligned"),
+    ("float32", None),
+])
+def test_check_bwd_alignment(case, match):
+    """The bf16 backward copies dy 16 bytes at a time and reads dh_last as
+    float pairs: _check_bwd raises naming the tensor, and copies nothing;
+    float32 takes such views."""
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    B, S, H, P = 2, 5, 3, 64
+    x = torch.zeros((B, S, H, P), dtype=dtype)
+    Bm, Cm = torch.zeros((B, S, P), dtype=dtype), torch.zeros((B, S, P), dtype=dtype)
+    dt, A = torch.zeros((B, S, H)), -torch.ones(H)
+    dy = torch.zeros(B * S * H * P + 4, dtype=dtype)[4:].view(B, S, H, P)
+    dh = torch.zeros(B * H * P * P + 1)[1:].view(B, H, P, P)
+    if case == "dh_last_offset":
+        dy = torch.zeros_like(x)
+    if match is None:
+        _check_bwd(x, dt, A, Bm, Cm, None, dy, dh)
+        return
+    with pytest.raises(ValueError, match=match):
+        _check_bwd(x, dt, A, Bm, Cm, None, dy, dh)
 
 # ---------------------------------------------------------------------------
 # WKV6 backward
@@ -311,6 +343,120 @@ def _kernel_ok(got, want, names, summed, rounded, dtype) -> dict[str, float]:
     return errs
 
 
+# The bf16 kernel's arithmetic, emulated: every product takes bf16 operands
+# (B, C, dy and xdt exact; each f32 one split into hi + lo halves, two
+# products) and sums in f32.  Names of the split operands, for dropping one.
+SSD_SPLITS = ("G^T", "W", "W^T", "h", "dh", "e*dy", "d*xdt")
+# bf16 roundings on each gradient's path (dx rounds d(xdt), then d(xdt) dt:
+# a flip of the first moves the product by up to two steps before the second)
+SSD_ROUNDED = {"dx": 3, "ddt": 0, "dB_": 1, "dC": 1}
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(v, name, single):
+    """hi + lo bf16 halves of an f32 operand; lo = 0 (one bf16 rounding) if
+    ``name`` is in ``single``."""
+    hi = _bf(v)
+    return hi, torch.zeros_like(v) if name in single else _bf(v - hi)
+
+
+def _ssd_bwd_bf16_emulated(x, dt, A, B_, C, h0, dy, dh_last, single=()):
+    """(dx, ddt, dA, dB_, dC, dh0) as the bf16 kernel forms them, per chunk of
+    64: a forward walk for the chunk-start states (kept as hi / lo), then
+    the backward walk carrying dh, with the row and column sums of M taken
+    from the f32 products and d(xdt) rounded to bf16 before dx and ddt."""
+    Q, (Bb, S, H, P) = 64, x.shape
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    dtq = _bf(dt)
+
+    def heads_first(t):                               # (B,S,H,P) -> (B,H,nc Q,P), zero-padded
+        return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+
+    X, XR, DY = heads_first(_bf(x.float() * dtq[..., None])), heads_first(x), heads_first(dy)
+    Bf, Cf = (F.pad(t.float(), (0, 0, 0, pad))[:, None] for t in (B_, C))
+    dA = F.pad(dt * A, (0, 0, 0, pad)).permute(0, 2, 1)
+    dtp = F.pad(dt, (0, 0, 0, pad)).permute(0, 2, 1)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    h = torch.zeros(Bb, H, P, P) if h0 is None else h0.clone()
+    starts = []
+    for c in range(nc):
+        starts.append(_split(h, "h", single))
+        s = slice(c * Q, c * Q + Q)
+        cum = torch.cumsum(dA[..., s], -1)
+        hi, lo = _split(X[:, :, s] * torch.exp(cum[..., -1:] - cum)[..., None], "d*xdt", single)
+        h = h * torch.exp(cum[..., -1])[..., None, None]
+        h = h + hi.mT @ Bf[:, :, s] + lo.mT @ Bf[:, :, s]
+    dh = torch.zeros(Bb, H, P, P) if dh_last is None else dh_last.clone()
+    g_all, ddt, dB, dC = (torch.zeros(Bb, H, nc * Q, P), torch.zeros(Bb, H, nc * Q),
+                          torch.zeros(Bb, H, nc * Q, P), torch.zeros(Bb, H, nc * Q, P))
+    dA_sum = torch.zeros(Bb, H)
+    for c in reversed(range(nc)):
+        s, nv = slice(c * Q, c * Q + Q), min(Q, S - c * Q)
+        xc, dyc, bc, cc = X[:, :, s], DY[:, :, s], Bf[:, :, s], Cf[:, :, s]
+        hhi, hlo = starts[c]
+        dhhi, dhlo = _split(dh, "dh", single)
+        cum = torch.cumsum(dA[..., s], -1)
+        ecum, dend, eQ = torch.exp(cum), torch.exp(cum[..., -1:] - cum), torch.exp(cum[..., -1])
+        L = torch.where(mask, torch.exp((cum[..., :, None] - cum[..., None, :]).clamp(max=0.0)),
+                        0.0)
+        G, DX = (cc @ bc.mT) * L, dyc @ xc.mT
+        M, Wm = G * DX, DX * L
+        dyh = dyc @ hhi + dyc @ hlo
+        whi, wlo = _split(Wm, "W", single)
+        dC[:, :, s] = whi @ bc + wlo @ bc + ecum[..., None] * dyh
+        ghi, glo = _split(G.mT, "G^T", single)
+        g = _bf(ghi @ dyc + glo @ dyc + dend[..., None] * (bc @ dhhi.mT + bc @ dhlo.mT))
+        xdh = xc @ dhhi + xc @ dhlo
+        thi, tlo = _split(Wm.mT, "W^T", single)
+        dB[:, :, s] = thi @ cc + tlo @ cc + dend[..., None] * xdh
+        kst = dend * (bc * xdh).sum(-1)
+        d = M.sum(-1) - M.sum(-2) + ecum * (cc * dyh).sum(-1) - kst
+        d[..., nv - 1] += eQ * ((hhi + hlo) * dh).sum((-1, -2)) + kst.sum(-1)
+        gd = torch.flip(torch.cumsum(torch.flip(d, (-1,)), -1), (-1,))
+        g_all[:, :, s] = g
+        ddt[:, :, s] = (g * XR[:, :, s]).sum(-1) + gd * A[None, :, None]
+        dA_sum += (gd * dtp[..., s])[..., :nv].sum(-1)
+        ehi, elo = _split(dyc * ecum[..., None], "e*dy", single)
+        dh = dh * eQ[..., None, None] + ehi.mT @ cc + elo.mT @ cc
+    dx = (g_all[:, :, :S].permute(0, 2, 1, 3) * dtq[..., None]).to(torch.bfloat16)
+    return (dx, ddt[:, :, :S].permute(0, 2, 1), dA_sum.sum(0),
+            dB[:, :, :S].sum(1).to(torch.bfloat16), dC[:, :, :S].sum(1).to(torch.bfloat16), dh)
+
+
+def _ssd_emulated_case(B, S, H, state):
+    _, t = _ssd_inputs(31, B, S, H, 64, 64, "bfloat16")
+    args = [t[k] for k in ("x", "dt", "A", "B_", "C")]
+    args += [t["h0"] if state else None, t["dy"], t["dh"] if state else None]
+    return args, ssd_scan_bwd_plain(*args)
+
+
+@pytest.mark.parametrize("B,S,H,state", [
+    (1, 512, 8, False),       # the train sequence, zero state in and no state gradient
+    (2, 512, 4, True),
+    (2, 77, 8, True),         # ragged: one full chunk and 13 rows
+    (1, 300, 3, True),
+])
+def test_ssd_bf16_kernel_arithmetic_matches_plain(B, S, H, state):
+    """The bf16 kernel's operand roundings and splits keep every gradient
+    within the limits the card holds the kernel to (_kernel_ok)."""
+    args, want = _ssd_emulated_case(B, S, H, state)
+    _kernel_ok(_ssd_bwd_bf16_emulated(*args), want, SSD_NAMES, SSD_SUMMED, SSD_ROUNDED,
+               "bfloat16")
+
+
+@pytest.mark.parametrize("operand", SSD_SPLITS)
+def test_ssd_bf16_kernel_needs_each_split(operand):
+    """Rounding any one split operand to a single bf16 misses those limits."""
+    args, want = _ssd_emulated_case(1, 512, 8, True)
+    got = _ssd_bwd_bf16_emulated(*args, single=(operand,))
+    with pytest.raises(AssertionError):
+        _kernel_ok(got, want, SSD_NAMES, SSD_SUMMED, SSD_ROUNDED, "bfloat16")
+
+
 # (B, S, H, h0/dh_last, dtype): the zamba2-7b train shape first.
 GPU_SSD_CASES = [
     (4, 512, 112, False, "bfloat16"),
@@ -341,9 +487,27 @@ def test_ssd_backward_kernel_matches_plain(B, S, H, state, dtype, cuda_device):
     torch.cuda.synchronize()
     assert ssd_scan_bwd.launches == launches + 1
     want = ssd_scan_bwd_plain(*args)
-    # dx rounds d(xdt), then d(xdt) dt: a flip of the first moves the product
-    # by up to two steps before the second rounding
-    _kernel_ok(got, want, SSD_NAMES, SSD_SUMMED, {"dx": 3, "ddt": 0, "dB_": 1, "dC": 1}, dtype)
+    _kernel_ok(got, want, SSD_NAMES, SSD_SUMMED, SSD_ROUNDED, dtype)
+
+
+@pytest.mark.gpu
+def test_ssd_backward_kernel_is_deterministic(cuda_device):
+    """The bf16 kernel at the zamba2-7b train shape, twice on the same
+    inputs: every gradient bit for bit (no atomics; the partials of dB_ and
+    dC and of dA are summed in a fixed order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, H, P = 4, 512, 112, 64
+    conv = torch.randn((B, S, H * P + 2 * P), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    x = conv[..., :H * P].view(B, S, H, P)
+    Bm, Cm = conv[..., H * P:H * P + P], conv[..., H * P + P:]
+    dt = 0.05 + 0.95 * torch.rand((B, S, H), generator=gen, device=cuda_device)
+    A = -(0.3 + 1.7 * torch.rand((H,), generator=gen, device=cuda_device))
+    dy = torch.randn((B, S, H, P), generator=gen, device=cuda_device).to(torch.bfloat16)
+    first = ssd_scan_bwd(x, dt, A, Bm, Cm, None, dy, None)
+    second = ssd_scan_bwd(x, dt, A, Bm, Cm, None, dy, None)
+    for name, a, b in zip(SSD_NAMES, first, second):
+        assert torch.equal(a, b), name
 
 
 # (B, S, H, s0/dS_last, dtype): the rwkv6-1.6b train shape first.
