@@ -2,13 +2,13 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ssd-bwd-compare [OTHER.cu ...]
+    python3 chip_smoke.py --bwd-compare {ssd_scan_bwd,wkv6_bwd} [OTHER.cu ...]
 
-The second form builds the SSD backward kernel from ssd_scan_bwd.cu and
+The second form builds one backward kernel from its source in csrc/ and
 from each other version of it named (e.g. an earlier one), checks each in
-bf16 against ssd_scan_bwd_plain at the zamba2-7b train shape, times them
-in turns (CUDA-graph replays), then prints the card's name and power
-limit; nothing else runs.
+bf16 against its plain version at its train shape (zamba2-7b or
+rwkv6-1.6b), twice for bit-repeatability, times them in turns (CUDA-graph
+replays), then prints the card's name and power limit; nothing else runs.
 
 Phases, each printing one JSON line; a failing phase raises and the script
 exits nonzero without printing a result:
@@ -16,8 +16,9 @@ exits nonzero without printing a result:
   device    card name and count, nvidia-smi name and power limit
   build     nvcc build of every kernel source for sm_90a (ptxas report:
             registers and spills of each kernel; seconds; shared memory per
-            block for both dtypes of flash, SSD and the SSD backward; bf16
-            blocks per SM of the SSD forward and backward)
+            block for both dtypes of flash, SSD and the SSD and WKV6
+            backward; bf16 blocks per SM of the SSD forward and of the SSD
+            and WKV6 backward kernels)
   kernels   each Hopper kernel against its plain PyTorch version on the
             same inputs, at its serving path's shape and around it, with
             kernel / plain (/ library) times and the bound (kernels and
@@ -78,7 +79,9 @@ exits nonzero without printing a result:
             kernel and the fixed-order sums of its partials; eager beside
             it), plain ms,
             the bound (the bytes read and written against the operations of
-            the backward's products); no library call computes either
+            the backward's products); no library call computes either.  The
+            bf16 WKV6 backward, like the SSD one, must agree bit for bit
+            across two runs at the train shape
   train_reference  small llama, zamba2 and rwkv6 (REFERENCE) trained 3 AdamW
             steps on the card and on the CPU from the same weights and
             batches (batch 2, seq 100), as is, with ga_steps=2 and with gc,
@@ -98,9 +101,10 @@ exits nonzero without printing a result:
             through launch.train.train with its f32 AdamW (gpt2: flash
             forward and backward 48 x 3; rwkv6: WKV6 forward and backward
             24 x 3); 0 plain calls; step ms, tokens/s, peak memory; then one
-            llama2-7b and one zamba2-7b step under torch.profiler (the port
-            kernels' shares of busy time, idle share), and a warm-up round
-            and SPLIT_ROUNDS more of each timed in two halves (medians):
+            llama2-7b, one zamba2-7b and one rwkv6-1.6b step under
+            torch.profiler (the port kernels' shares of busy time, idle
+            share), and for llama2-7b and zamba2-7b a warm-up round and
+            SPLIT_ROUNDS more of each timed in two halves (medians):
             forward + backward, then the optimizer update
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
@@ -266,7 +270,8 @@ def phase_build():
     wkv_occ = int_fn("wkv6_fwd", "wkv6_fwd_bf16_blocks_per_sm", 0)
     ssd_bwd = int_fn("ssd_scan_bwd", "ssd_scan_bwd_smem_bytes", 2)
     ssd_bwd_occ = int_fn("ssd_scan_bwd", "ssd_scan_bwd_bf16_blocks_per_sm", 1)
-    wkv_bwd = int_fn("wkv6_bwd", "wkv6_bwd_smem_bytes", 0)
+    wkv_bwd = int_fn("wkv6_bwd", "wkv6_bwd_smem_bytes", 2)
+    wkv_bwd_occ = int_fn("wkv6_bwd", "wkv6_bwd_bf16_blocks_per_sm", 1)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          smem_bytes={"flash_attention_fwd": {dt: {d: fa(d, code) for d in HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1),
@@ -280,9 +285,11 @@ def phase_build():
                                   for dt, code in (("bfloat16", 1), ("float32", 0))},
                      "ssd_scan_bwd": {"bfloat16": ssd_bwd(1, 0), "bfloat16 states": ssd_bwd(1, 1),
                                       "float32": ssd_bwd(0, 0)},
-                     "wkv6_bwd": wkv_bwd()},
+                     "wkv6_bwd": {"bfloat16 sums": wkv_bwd(1, 0), "bfloat16 chunks": wkv_bwd(1, 1),
+                                  "float32": wkv_bwd(0, 0)}},
          ssd_bf16_blocks_per_sm=ssd_occ(), wkv6_bf16_blocks_per_sm=wkv_occ(),
          ssd_bwd_bf16_blocks_per_sm={"backward walk": ssd_bwd_occ(0), "states": ssd_bwd_occ(1)},
+         wkv6_bwd_bf16_blocks_per_sm={"sums": wkv_bwd_occ(0), "chunks": wkv_bwd_occ(1)},
          libs={n: {"path": str(b.path.relative_to(Path(__file__).resolve().parent)),
                    "nvcc_s": round(b.seconds, 3), "cached": b.cached,
                    "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
@@ -733,6 +740,22 @@ def ssd_bwd_bound(B, S, H, P, N, state, dtype, Q=64):
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
+def ssd_bwd_args(gen, B, S, H, state, dt) -> tuple:
+    """The SSD backward's inputs, heads of P = 64, state N = 64: x, B, C as
+    views of one conv output, as mamba2_apply passes them; h0 and dh_last
+    only when `state`."""
+    P = N = 64
+    conv = torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda").to(dt)
+    x = conv[..., :H * P].view(B, S, H, P)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    dtv = 0.05 + 0.95 * torch.rand((B, S, H), generator=gen, device="cuda")
+    A = -(0.3 + 1.7 * torch.rand((H,), generator=gen, device="cuda"))
+    h0, dh = (torch.randn((B, H, P, N), generator=gen, device="cuda") if state else None
+              for _ in range(2))
+    dy = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dt)
+    return (x, dtv, A, Bm, Cm, h0, dy, dh)
+
+
 def phase_ssd_bwd_kernels():
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain
 
@@ -740,126 +763,26 @@ def phase_ssd_bwd_kernels():
     rows, failed = [], []
     for i, (label, B, S, H, state, dt) in enumerate(SSD_BWD_CASES):
         main = i == 0
-        P = N = 64
-        # x, B, C as views of one conv output, as mamba2_apply passes them
-        conv = torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda").to(dt)
-        x = conv[..., :H * P].view(B, S, H, P)
-        Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
-        dtv = 0.05 + 0.95 * torch.rand((B, S, H), generator=gen, device="cuda")
-        A = -(0.3 + 1.7 * torch.rand((H,), generator=gen, device="cuda"))
-        h0, dh = (torch.randn((B, H, P, N), generator=gen, device="cuda") if state else None
-                  for _ in range(2))
-        dy = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dt)
-        row = bwd_case(label, main, (x, dtv, A, Bm, Cm, h0, dy, dh), ssd_scan_bwd,
-                       ssd_scan_bwd_plain, ssd_scan_plain, SSD_GRADS, SSD_SUMMED, SSD_ROUNDED,
-                       dt, ssd_bwd_bound(B, S, H, P, N, state, dt))
+        args = ssd_bwd_args(gen, B, S, H, state, dt)
+        row = bwd_case(label, main, args, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain,
+                       SSD_GRADS, SSD_SUMMED, SSD_ROUNDED, dt,
+                       ssd_bwd_bound(B, S, H, 64, 64, state, dt))
         if main:
             # no atomics: two runs on the same inputs agree bit for bit
-            args = (x, dtv, A, Bm, Cm, h0, dy, dh)
             first, second = ssd_scan_bwd(*args), ssd_scan_bwd(*args)
             row["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(first, second))
             row["ok"] = row["ok"] and row["bitwise_repeatable"]
-            del first, second, args
-        rows.append(dict(B=B, S=S, H=H, P=P, N=N, state=state, **row))
+            del first, second
+        rows.append(dict(B=B, S=S, H=H, P=64, N=64, state=state, **row))
         if not row["ok"]:
             failed.append(label)
-        del conv, x, Bm, Cm, dtv, A, h0, dh, dy
+        del args
         torch.cuda.empty_cache()
     emit("ssd_bwd_kernels", kernel="ssd_scan_bwd", tol=TOL_STATE, tol_summed=TOL_SUMMED,
          tol_bf16_rounded=TOL_SCAN[torch.bfloat16], cases=rows)
     if failed:
         raise AssertionError(f"ssd_scan_bwd disagrees with its plain version: {failed}")
     return rows[0]
-
-
-def build_ssd_bwd_versions(others: list[Path]) -> dict:
-    """csrc/ssd_scan_bwd.cu and each other version of it named (e.g. an
-    earlier one), built by nvcc all at once into
-    build/ssd_bwd_compare/<tag>/ (tag: "current", or the other source's
-    directory name).  tag -> (binding, bf16 blocks per SM of the backward
-    walk and the states kernel, or None, ptxas lines)."""
-    import ctypes
-
-    from repro_torch.kernels import build
-    from repro_torch.kernels.ssd_scan import bind_bwd
-
-    out = build.BUILD_DIR.parent / "ssd_bwd_compare"
-    sources = {"current": (build.CSRC / "ssd_scan_bwd.cu").read_text()}
-    for path in others:
-        sources[path.resolve().parent.name] = path.read_text()
-    procs = {}
-    for tag, text in sources.items():
-        (out / tag).mkdir(parents=True, exist_ok=True)
-        cu = out / tag / "ssd_scan_bwd.cu"
-        cu.write_text(text)
-        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out / tag / "lib.so"), str(cu)]
-        procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-    libs = {}
-    for tag, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
-        lib = ctypes.CDLL(str(out / tag / "lib.so"))
-        occ = None
-        if hasattr(lib, "ssd_scan_bwd_bf16_blocks_per_sm"):
-            fn = lib.ssd_scan_bwd_bf16_blocks_per_sm
-            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-            occ = [fn(0), fn(1)]
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
-        libs[tag] = (bind_bwd(lib), occ, ptxas)
-    return libs
-
-
-def compare_ssd_bwd(others: list[Path], reps: int = 20) -> int:
-    """--ssd-bwd-compare: every version from build_ssd_bwd_versions against
-    ssd_scan_bwd_plain at the zamba2-7b train shape (the ssd_bwd_kernels
-    limits), then timed as CUDA-graph replays in turns (the versions in
-    order, then reversed), each with the fixed-order sums of its partials."""
-    from repro_torch.kernels.ssd_scan import _check_bwd, launch_bwd, ssd_scan_bwd_plain
-
-    name, smi = phase_device()
-    libs = build_ssd_bwd_versions(others)
-    label, B, S, H, state, dt = SSD_BWD_CASES[0]
-    P = N = 64
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    conv = torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda").to(dt)
-    x = conv[..., :H * P].view(B, S, H, P)
-    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
-    dtv = 0.05 + 0.95 * torch.rand((B, S, H), generator=gen, device="cuda")
-    A = -(0.3 + 1.7 * torch.rand((H,), generator=gen, device="cuda"))
-    dy = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dt)
-    args = (x, dtv, A, Bm, Cm, None, dy, None)
-    _check_bwd(*args)
-    want = ssd_scan_bwd_plain(*args)
-    rows, failed = {}, []
-    for tag, (fn, occ, ptxas) in libs.items():
-        got = launch_bwd(fn, *args)
-        torch.cuda.synchronize()
-        errs, steps, bad = check_grads(got, want, SSD_GRADS, SSD_SUMMED, SSD_ROUNDED, dt)
-        again = launch_bwd(fn, *args)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        rows[tag] = dict(version=tag, blocks_per_sm=occ, ptxas=ptxas,
-                         rel_err=errs, bf16_steps_apart=steps, failed=bad,
-                         bitwise_repeatable=same, ms=[])
-        if bad or not same:
-            failed.append(tag)
-        del got, again
-    order = list(libs)
-    for tag in order + order[::-1]:
-        fn = libs[tag][0]
-        rows[tag]["ms"].append(graph_ms(lambda: launch_bwd(fn, *args), reps))
-    bms, by, flops, nbytes = ssd_bwd_bound(B, S, H, P, N, state, dt)
-    for row in rows.values():
-        best = min(row["ms"])
-        emit("ssd_bwd_compare", case=label, B=B, S=S, H=H, **row, bound_ms=bms, bound_by=by,
-             x_bound=best / bms, tflops=flops / best / 1e9)
-    print(smi)
-    if failed:
-        print(f"chip_smoke: versions disagree with the plain version: {failed}", file=sys.stderr)
-        return 1
-    return 0
 
 
 # (label, B, S, H, s0 and dS_last, dtype); the first is the rwkv6-1.6b train
@@ -872,6 +795,8 @@ WKV_BWD_CASES = [
     ("batch 1, s0 and dS_last", 1, 512, 32, True, torch.bfloat16),
 ]
 WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+WKV_SUMMED = ("dlogw", "du")
+WKV_ROUNDED = {"dr": 1, "dk": 1, "dv": 1}
 
 
 def wkv_bwd_bound(B, S, H, hd, state, dtype, Q=32):
@@ -892,6 +817,21 @@ def wkv_bwd_bound(B, S, H, hd, state, dtype, Q=32):
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
+def wkv_bwd_args(gen, B, S, H, state, dt) -> tuple:
+    """The WKV6 backward's inputs, heads of 64: r, k, v as views of one
+    projection output, as time_mix passes them; s0 and dS_last only when
+    `state`."""
+    hd = 64
+    proj = torch.randn((B, S, 3, H * hd), generator=gen, device="cuda").to(dt)
+    r, k, v = (proj[:, :, j].view(B, S, H, hd) for j in range(3))
+    logw = -(0.02 + 2.98 * torch.rand((B, S, H, hd), generator=gen, device="cuda"))
+    u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
+    s0, dS = (torch.randn((B, H, hd, hd), generator=gen, device="cuda") if state else None
+              for _ in range(2))
+    dy = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    return (r, k, v, logw, u, s0, dy, dS)
+
+
 def phase_wkv_bwd_kernels():
     from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_bwd_plain, wkv6_plain
 
@@ -899,28 +839,141 @@ def phase_wkv_bwd_kernels():
     rows, failed = [], []
     for i, (label, B, S, H, state, dt) in enumerate(WKV_BWD_CASES):
         main = i == 0
-        hd = 64
-        # r, k, v as views of one projection output, as time_mix passes them
-        proj = torch.randn((B, S, 3, H * hd), generator=gen, device="cuda").to(dt)
-        r, k, v = (proj[:, :, j].view(B, S, H, hd) for j in range(3))
-        logw = -(0.02 + 2.98 * torch.rand((B, S, H, hd), generator=gen, device="cuda"))
-        u = 0.5 * torch.randn((H, hd), generator=gen, device="cuda")
-        s0, dS = (torch.randn((B, H, hd, hd), generator=gen, device="cuda") if state else None
-                  for _ in range(2))
-        dy = torch.randn((B, S, H, hd), generator=gen, device="cuda")
-        row = bwd_case(label, main, (r, k, v, logw, u, s0, dy, dS), wkv6_bwd, wkv6_bwd_plain,
-                       wkv6_plain, WKV_GRADS, ("dlogw", "du"), {"dr": 1, "dk": 1, "dv": 1},
-                       dt, wkv_bwd_bound(B, S, H, hd, state, dt))
-        rows.append(dict(B=B, S=S, H=H, hd=hd, state=state, **row))
+        args = wkv_bwd_args(gen, B, S, H, state, dt)
+        row = bwd_case(label, main, args, wkv6_bwd, wkv6_bwd_plain, wkv6_plain, WKV_GRADS,
+                       WKV_SUMMED, WKV_ROUNDED, dt, wkv_bwd_bound(B, S, H, 64, state, dt))
+        if main:
+            # no atomics: two runs on the same inputs agree bit for bit
+            first, second = wkv6_bwd(*args), wkv6_bwd(*args)
+            row["bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(first, second))
+            row["ok"] = row["ok"] and row["bitwise_repeatable"]
+            del first, second
+        rows.append(dict(B=B, S=S, H=H, hd=64, state=state, **row))
         if not row["ok"]:
             failed.append(label)
-        del proj, r, k, v, logw, u, s0, dS, dy
+        del args
         torch.cuda.empty_cache()
     emit("wkv6_bwd_kernels", kernel="wkv6_bwd", tol=TOL_STATE, tol_summed=TOL_SUMMED,
          tol_bf16_rounded=TOL_SCAN[torch.bfloat16], cases=rows)
     if failed:
         raise AssertionError(f"wkv6_bwd disagrees with its plain version: {failed}")
     return rows[0]
+
+
+def ssd_bwd_launcher(lib):
+    from repro_torch.kernels.ssd_scan import bind_bwd, launch_bwd
+
+    fn = bind_bwd(lib)
+    return lambda *args: launch_bwd(fn, *args)
+
+
+def wkv_bwd_launcher(lib):
+    """The CUDA-core source (commits fa89b8d to b22a2e0) has the same C entry
+    point but no size functions: its scratch is the chunk-start states,
+    (B,H,nc,hd,hd) f32, and its du partials one row a batch."""
+    from repro_torch.kernels.wkv6 import CHUNK, bind_bwd, bind_bwd_sizes, launch_bwd
+
+    fn = bind_bwd(lib)
+    sizes = (bind_bwd_sizes(lib) if hasattr(lib, "wkv6_bwd_scratch_bytes")
+             else lambda B, S, H, code: (4 * B * H * -(-S // CHUNK) * 64 * 64, 1))
+    return lambda *args: launch_bwd(fn, sizes, *args)
+
+
+# --bwd-compare: each backward kernel's launcher from a built library, its
+# module, its cases (the first, the train shape, is compared), inputs, bound
+# and check_grads arguments.
+BWD_COMPARE = {
+    "ssd_scan_bwd": (ssd_bwd_launcher, "ssd_scan", SSD_BWD_CASES, ssd_bwd_args,
+                     lambda B, S, H, state, dt: ssd_bwd_bound(B, S, H, 64, 64, state, dt),
+                     SSD_GRADS, SSD_SUMMED, SSD_ROUNDED),
+    "wkv6_bwd": (wkv_bwd_launcher, "wkv6", WKV_BWD_CASES, wkv_bwd_args,
+                 lambda B, S, H, state, dt: wkv_bwd_bound(B, S, H, 64, state, dt),
+                 WKV_GRADS, WKV_SUMMED, WKV_ROUNDED),
+}
+
+
+def build_bwd_versions(kernel: str, others: list[Path]) -> dict:
+    """csrc/<kernel>.cu and each other version of it named (e.g. an earlier
+    one), built by nvcc all at once into build/bwd_compare/<kernel>/<tag>/
+    (tag: "current", or the other source's directory name).  tag ->
+    (launch function, bf16 blocks per SM of its two kernels or None, ptxas
+    lines)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    out = build.BUILD_DIR.parent / "bwd_compare" / kernel
+    sources = {"current": (build.CSRC / f"{kernel}.cu").read_text()}
+    for path in others:
+        sources[path.resolve().parent.name] = path.read_text()
+    procs = {}
+    for tag, text in sources.items():
+        (out / tag).mkdir(parents=True, exist_ok=True)
+        cu = out / tag / f"{kernel}.cu"
+        cu.write_text(text)
+        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out / tag / "lib.so"), str(cu)]
+        procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+    libs = {}
+    for tag, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        lib = ctypes.CDLL(str(out / tag / "lib.so"))
+        occ = None
+        if hasattr(lib, f"{kernel}_bf16_blocks_per_sm"):
+            fn = getattr(lib, f"{kernel}_bf16_blocks_per_sm")
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+            occ = [fn(0), fn(1)]
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+        libs[tag] = (BWD_COMPARE[kernel][0](lib), occ, ptxas)
+    return libs
+
+
+def compare_bwd(kernel: str, others: list[Path], reps: int = 20) -> int:
+    """--bwd-compare KERNEL: every version from build_bwd_versions against
+    the plain version at the train shape (the bwd_kernels limits), twice for
+    bit-repeatability, then timed as CUDA-graph replays in turns (the
+    versions in order, then reversed), each with the fixed-order sums of
+    its partials."""
+    import importlib
+
+    _, module, cases, make_args, make_bound, names, summed, rounded = BWD_COMPARE[kernel]
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    name, smi = phase_device()
+    libs = build_bwd_versions(kernel, others)
+    label, B, S, H, state, dt = cases[0]
+    args = make_args(torch.Generator(device="cuda").manual_seed(SEED), B, S, H, state, dt)
+    mod._check_bwd(*args)
+    want = getattr(mod, f"{kernel}_plain")(*args)
+    rows, failed = {}, []
+    for tag, (launch, occ, ptxas) in libs.items():
+        got = launch(*args)
+        torch.cuda.synchronize()
+        errs, steps, bad = check_grads(got, want, names, summed, rounded, dt)
+        again = launch(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rows[tag] = dict(version=tag, blocks_per_sm=occ, ptxas=ptxas,
+                         rel_err=errs, bf16_steps_apart=steps, failed=bad,
+                         bitwise_repeatable=same, ms=[])
+        if bad or not same:
+            failed.append(tag)
+        del got, again
+    order = list(libs)
+    for tag in order + order[::-1]:
+        launch = libs[tag][0]
+        rows[tag]["ms"].append(graph_ms(lambda: launch(*args), reps))
+    bms, by, flops, nbytes = make_bound(B, S, H, state, dt)
+    for row in rows.values():
+        best = min(row["ms"])
+        emit("bwd_compare", kernel=kernel, case=label, B=B, S=S, H=H, **row, bound_ms=bms,
+             bound_by=by, x_bound=best / bms, tflops=flops / best / 1e9)
+    print(smi)
+    if failed:
+        print(f"chip_smoke: versions disagree with the plain version: {failed}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def _rel(a, b) -> float:
@@ -1190,7 +1243,8 @@ PORT_KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_bwd
                      "flash_bwd_dkdv", "ssd_fwd_bf16_kernel", "ssd_fwd_f32_kernel",
                      "wkv6_fwd_bf16_kernel", "wkv6_fwd_f32_kernel", "wkv6_decode_kernel",
                      "ssd_bwd_bf16_kernel", "ssd_bwd_states_kernel", "ssd_bwd_f32_kernel",
-                     "wkv6_bwd_kernel")
+                     "wkv6_bwd_kernel", "wkv6_bwd_sums_kernel", "wkv6_bwd_scan_kernel",
+                     "wkv6_bwd_chunk_kernel")
 
 
 def device_kernels(prof) -> list[tuple[str, float, int]]:
@@ -1262,6 +1316,10 @@ TRACE_SHARES = {
     "zamba2-7b train": {"ssd_fwd": "ssd_fwd_bf16_kernel", "ssd_bwd": "ssd_bwd_",
                         "ssd_bwd_states": "ssd_bwd_states_kernel",
                         "flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
+    "rwkv6-1.6b train": {"wkv6_fwd": "wkv6_fwd_bf16_kernel", "wkv6_bwd": "wkv6_bwd_",
+                         "wkv6_bwd_sums": "wkv6_bwd_sums_kernel",
+                         "wkv6_bwd_scan": "wkv6_bwd_scan_kernel",
+                         "wkv6_bwd_chunks": "wkv6_bwd_chunk_kernel"},
 }
 
 
@@ -1394,7 +1452,8 @@ def phase_train_trace(path: str, run_step, shares: dict[str, str]) -> None:
 def phase_train_launcher(arch: str, steps: int = 3) -> dict[str, int]:
     """gpt2-1.5b or rwkv6-1.6b, bf16, batch 4, seq 512, through the launcher
     (launch.train.train) with its own f32 AdamW; the step times are the
-    launcher's own (each step up to reading its loss)."""
+    launcher's own (each step up to reading its loss).  For the paths in
+    TRACE_SHARES (rwkv6-1.6b), one more step under the profiler."""
     from repro_torch import configs
     from repro_torch.launch.train import train
 
@@ -1420,6 +1479,14 @@ def phase_train_launcher(arch: str, steps: int = 3) -> dict[str, int]:
          launches=launches, plain_calls=plain_calls)
     if not np.isfinite(out["losses"]).all():
         raise AssertionError(f"{path}: non-finite loss {out['losses']}")
+    if path in TRACE_SHARES:
+        from repro_torch.data.pipeline import DataConfig, make_source
+
+        data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                      seed=SEED))
+        batch = {"tokens": torch.from_numpy(data.batch(steps)).long().cuda()}
+        phase_train_trace(path, lambda: out["step_fn"](out["params"], out["opt_state"], batch),
+                          TRACE_SHARES[path])
     del out
     free_device_memory()
     return launches
@@ -1435,8 +1502,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ["--ssd-bwd-compare"]:
-        return compare_ssd_bwd([Path(a) for a in sys.argv[2:]])
+    if sys.argv[1:2] == ["--bwd-compare"]:
+        if sys.argv[2:3] == [] or sys.argv[2] not in BWD_COMPARE:
+            print(f"chip_smoke: --bwd-compare takes one of {list(BWD_COMPARE)}", file=sys.stderr)
+            return 2
+        return compare_bwd(sys.argv[2], [Path(a) for a in sys.argv[3:]])
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()

@@ -21,9 +21,11 @@ its own runs in a plain integer attribute (``wkv6_fwd.launches``,
 it runs; ``wkv6_fwd.decode_launches`` counts the S = 1 ones among them.
 
 The backward (the reference trains by autodiff of ``wkv_chunked``; it has no
-Pallas backward) is ``wkv6_bwd``: a CUDA kernel (``csrc/wkv6_bwd.cu``) for
+Pallas backward) is ``wkv6_bwd``: CUDA kernels (``csrc/wkv6_bwd.cu``: for
+bfloat16 three in stream order, each chunk's own state terms, a scan over
+chunks and the per-chunk gradients; for float32 one CUDA-core kernel) for
 CUDA tensors, the explicit chunked ``wkv6_bwd_plain`` for CPU tensors,
-counted in ``wkv6_bwd.launches`` and ``wkv6_bwd_plain.calls``.
+counted in ``wkv6_bwd.launches`` (one a call) and ``wkv6_bwd_plain.calls``.
 :class:`WKV6` is the autograd Function around the forward and it.  The S = 1
 decode kernel has no backward: serving runs under ``no_grad``.
 """
@@ -299,11 +301,22 @@ def bind_bwd(lib: ctypes.CDLL):
     return fn
 
 
+def bind_bwd_sizes(lib: ctypes.CDLL):
+    """``sizes(B, S, H, dtype code) -> (scratch bytes, du partials per
+    batch)`` of a built library's ``wkv6_bwd``: the C functions
+    ``wkv6_bwd_scratch_bytes`` and ``wkv6_bwd_du_parts``."""
+    scratch, parts = lib.wkv6_bwd_scratch_bytes, lib.wkv6_bwd_du_parts
+    scratch.argtypes, scratch.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    parts.argtypes, parts.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return lambda B, S, H, code: (scratch(B, S, H, code), parts(S, code))
+
+
 @functools.cache
 def _bwd_kernel_fn():
     from repro_torch.kernels import build
 
-    return bind_bwd(build.load("wkv6_bwd"))
+    lib = build.load("wkv6_bwd")
+    return bind_bwd(lib), bind_bwd_sizes(lib)
 
 
 def _check_bwd(r, k, v, logw, u, s0, dy, dS_last):
@@ -312,63 +325,79 @@ def _check_bwd(r, k, v, logw, u, s0, dy, dS_last):
             or not dy.is_contiguous():
         raise ValueError(f"dy must be contiguous float32 {tuple(r.shape)} on {r.device}; "
                          f"got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
-    B, _, H, hd = r.shape
+    B, S, H, hd = r.shape
     if dS_last is not None and (tuple(dS_last.shape) != (B, H, hd, hd)
                                 or dS_last.dtype != torch.float32
                                 or not dS_last.is_contiguous() or dS_last.device != r.device):
         raise ValueError(f"dS_last must be contiguous float32 {(B, H, hd, hd)} on "
                          f"{r.device}; got {dS_last.dtype} {tuple(dS_last.shape)}")
+    if r.dtype != torch.bfloat16:
+        return
+    # The bf16 backward copies r, k, v, logw and dy 16 bytes at a time at any
+    # S (_check holds the first four to that for S > 1 only, as the forward's
+    # decode kernel needs nothing), and reads dS_last as float4.
+    if S == 1:
+        _check_bf16_alignment(r, k, v, logw)
+    if dy.data_ptr() % 16:
+        raise ValueError(f"dy: data must be 16-byte aligned for the bfloat16 kernels; got "
+                         f"address {dy.data_ptr():#x} (storage offset {dy.storage_offset()})")
+    if dS_last is not None and dS_last.data_ptr() % 16:
+        raise ValueError(f"dS_last: data must be 16-byte aligned; got address "
+                         f"{dS_last.data_ptr():#x}")
 
 
 def wkv6_bwd(r, k, v, logw, u, s0, dy, dS_last):
     """WKV backward, (dr, dk, dv, dlogw, du, ds0), from the forward's inputs,
     the gradient dy of y (f32) and dS_last of S_last (None: zero).
 
-    On CUDA tensors this launches the backward kernel on the current stream
-    (the inputs as :func:`wkv6_fwd` takes them; dy is made
-    contiguous first, as autograd may hand over any layout; dS_last
-    contiguous f32).  Its per-batch partials of du are summed here in a fixed
-    order (no atomics, so the result does not change from run to run).  CPU
-    tensors go to :func:`wkv6_bwd_plain`.  Any other device raises."""
+    On CUDA tensors this launches the backward kernels on the current stream
+    (the inputs as :func:`wkv6_fwd` takes them, the bfloat16 alignment rule
+    at every S; dy is made contiguous first, as autograd may hand over any
+    layout, and must then be 16-byte aligned for bfloat16; dS_last
+    contiguous f32, 16-byte aligned).  Their partials of du are summed here
+    in a fixed order (no atomics, so the result does not change from run to
+    run).  CPU tensors go to :func:`wkv6_bwd_plain`.  Any other device
+    raises."""
     if r.device.type == "cpu":
         return wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dS_last)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_bwd runs on cuda or cpu tensors, not {r.device}")
     dy = dy.contiguous()
     _check_bwd(r, k, v, logw, u, s0, dy, dS_last)
-    dr, dk, dv, dlogw, du_part, ds0 = launch_bwd(_bwd_kernel_fn(), r, k, v, logw, u, s0,
-                                                 dy, dS_last)
+    grads = launch_bwd(*_bwd_kernel_fn(), r, k, v, logw, u, s0, dy, dS_last)
     wkv6_bwd.launches += 1
-    return dr, dk, dv, dlogw, du_part.sum(0), ds0
+    return grads
 
 
-def launch_bwd(fn, r, k, v, logw, u, s0, dy, dS_last):
-    """Allocate the outputs (dr, dk, dv in r's dtype, dlogw, du per batch
-    (B,H,hd), ds0, all f32 but the first three) and the chunk-start states'
-    scratch (B,H,nc,hd,hd) f32, and launch ``fn``, a ctypes binding of the C
-    entry point ``wkv6_bwd``, on checked CUDA tensors; raise if the launch
-    fails."""
+def launch_bwd(fn, sizes, r, k, v, logw, u, s0, dy, dS_last):
+    """Allocate the outputs (dr, dk, dv in r's dtype; dlogw, ds0 f32), du's
+    partials and the scratch as ``sizes`` gives them, launch ``fn``, a ctypes
+    binding of the C entry point ``wkv6_bwd`` (``sizes`` from
+    :func:`bind_bwd_sizes` of the same library), on checked CUDA tensors,
+    raise if the launch fails, and return (dr, dk, dv, dlogw, du, ds0) with
+    the partials of du summed over batch and chunks."""
     B, S, H, hd = r.shape
-    nc = -(-S // CHUNK)
+    code = _DTYPE_CODE[r.dtype]
+    scratch_bytes, parts = sizes(B, S, H, code)
     u = u.contiguous()
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv = (torch.empty((B, S, H, hd), dtype=r.dtype, device=r.device)
                   for _ in range(3))
     dlogw = torch.empty((B, S, H, hd), **f32)
-    du_part = torch.empty((B, H, hd), **f32)
+    du_part = torch.empty((B, parts, H, hd), **f32)
     ds0 = torch.empty((B, H, hd, hd), **f32)
-    states = torch.empty((B, H, nc, hd, hd), **f32)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=r.device)
     with torch.cuda.device(r.device):
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
                 s0.data_ptr() if s0 is not None else None, dy.data_ptr(),
-                dS_last.data_ptr() if dS_last is not None else None, states.data_ptr(),
+                dS_last.data_ptr() if dS_last is not None else None, scratch.data_ptr(),
                 dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
                 du_part.data_ptr(), ds0.data_ptr(), B, S, H, hd,
                 *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *logw.stride()[:3],
-                _DTYPE_CODE[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
+                code, torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: cudaError {rc}")
-    return dr, dk, dv, dlogw, du_part, ds0
+    return dr, dk, dv, dlogw, du_part.sum((0, 1)), ds0
 
 
 wkv6_bwd.launches = 0

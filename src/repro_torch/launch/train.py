@@ -45,9 +45,9 @@ def train(arch: str = "gemma-2b", reduced: bool = True, steps: int = 50,
           ckpt_every: int = 20, log_every: int = 10, seed: int = 0,
           remat: bool = False, device="cuda") -> dict:
     """Train ``steps`` steps (from the latest checkpoint when there is one).
-    Returns {"losses", "final_loss", "params", "step_seconds"}: the last is
-    each step's wall time, up to reading its loss (which waits for the
-    device)."""
+    Returns {"losses", "final_loss", "params", "opt_state", "step_fn",
+    "step_seconds"}: the last is each step's wall time, up to reading its
+    loss (which waits for the device); ``step_fn`` takes a further step."""
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.optimizer import OptConfig, opt_init
@@ -88,7 +88,8 @@ def train(arch: str = "gemma-2b", reduced: bool = True, steps: int = 50,
         mgr.save(steps, params, opt_state,
                  meta={"arch": arch, "plan": plan.strategy}, block=True)
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "params": params, "step_seconds": step_seconds}
+            "params": params, "opt_state": opt_state, "step_fn": step_fn,
+            "step_seconds": step_seconds}
 
 
 def main(argv=None) -> None:

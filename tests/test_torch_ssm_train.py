@@ -13,15 +13,19 @@
   namespace tc: bf16 operands, hi + lo splits of the f32 ones, f32
   accumulation) emulated in torch ops on the CPU and held to
   ``ssd_scan_bwd_plain`` at the limits the card's checks use; without any
-  one of its splits it misses them.
+  one of its splits it misses them.  The same for the bf16 WKV6 backward
+  (``csrc/wkv6_bwd.cu``, namespace tc: S_c and dS_c from the chunks' own
+  terms, factored off-diagonal blocks, exact diagonal blocks), and its
+  per-chunk decomposition alone, unrounded, against ``wkv6_bwd_plain`` in
+  f32.
 * ``SSDScan`` and ``WKV6`` under ``torch.autograd.gradcheck`` in float64
   (the plain versions compute in float64 for float64 inputs), over two
   chunks, the second ragged.
 * The launcher trains the reduced zamba2-7b and rwkv6-1.6b on the CPU.
 * ``gpu``: each backward kernel against its plain version on the card, at
   the train paths' shapes (zamba2-7b: x, B, C views of the conv output;
-  rwkv6-1.6b: views of the projections) and around them; the bf16 SSD
-  backward twice on the same inputs, bit for bit; and 3 AdamW steps of cut
+  rwkv6-1.6b: views of the projections) and around them; the bf16 SSD and
+  WKV6 backward twice on the same inputs, bit for bit; and 3 AdamW steps of cut
   zamba2 / rwkv6 configs on the card against the CPU.
 
 Loss and gradients of the whole models against ``jax.value_and_grad`` are in
@@ -40,6 +44,7 @@ from repro.models import rwkv6 as jrwkv6
 from repro_torch.kernels.ssd_scan import (SSDScan, _check_bwd, ssd_scan_bwd,
                                           ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.kernels.wkv6 import WKV6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain
+from repro_torch.kernels.wkv6 import _check_bwd as _check_wkv_bwd
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -268,6 +273,32 @@ def test_wkv_backward_dispatches_by_device():
         wkv6_bwd(*(a.to("meta") if a is not None else None for a in args))
 
 
+@pytest.mark.parametrize("case,match", [
+    ("dy_offset", "dy: data must be 16-byte aligned"),
+    ("dS_last_offset", "dS_last: data must be 16-byte aligned"),
+    ("S=1 r_offset", "r: data must be 16-byte aligned"),
+    ("float32", None),
+])
+def test_wkv_check_bwd_alignment(case, match):
+    """The bf16 backward copies r, k, v, logw and dy 16 bytes at a time at
+    every S (S = 1 too) and reads dS_last as float4: _check_bwd raises
+    naming the tensor, and copies nothing; float32 takes such views."""
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    B, S, H, hd = 2, 1 if case.startswith("S=1") else 5, 3, 64
+    n = B * S * H * hd
+    r = torch.zeros(n + 8, dtype=dtype)[8 if case != "S=1 r_offset" else 1:][:n].view(B, S, H, hd)
+    k, v = (torch.zeros((B, S, H, hd), dtype=dtype) for _ in range(2))
+    logw, u = torch.zeros((B, S, H, hd)), torch.zeros((H, hd))
+    dy = torch.zeros(n + 2)[2 if case == "dy_offset" else 0:][:n].view(B, S, H, hd)
+    dS = torch.zeros(B * H * hd * hd + 1)[1 if case == "dS_last_offset" else 0:][
+        :B * H * hd * hd].view(B, H, hd, hd)
+    if match is None:
+        _check_wkv_bwd(r, k, v, logw, u, None, dy, dS)
+        return
+    with pytest.raises(ValueError, match=match):
+        _check_wkv_bwd(r, k, v, logw, u, None, dy, dS)
+
+
 def test_serving_takes_the_forward_alone():
     """Under no_grad (serving) the model paths call the forward kernels
     alone; with grad they go through the autograd Functions."""
@@ -457,6 +488,164 @@ def test_ssd_bf16_kernel_needs_each_split(operand):
         _kernel_ok(got, want, SSD_NAMES, SSD_SUMMED, SSD_ROUNDED, "bfloat16")
 
 
+# The bf16 WKV6 backward kernels' arithmetic (csrc/wkv6_bwd.cu, namespace tc),
+# emulated: the chunk-start states S_c and the end-of-chunk state gradients
+# dS_c from the two walks, kept as hi / lo bf16 halves; then each chunk's
+# gradients from them alone.  Every product takes bf16 operands (r, k, v
+# exact; each f32 one split into hi + lo, three products: hi hi, hi lo, lo
+# hi) and sums in f32; the off-diagonal 16 x 16 blocks of a chunk factor at
+# row b = 15 (r~ = r o e^{a - cw_b}, k~ = k o e^{cw_b - cw}), the two diagonal
+# blocks take the exact exponent in f32.  Names of the split operands, for
+# dropping one.
+WKV_SPLITS = ("dy", "S", "dS", "rk~", "kd", "rd", "A", "D")
+WKV_ROUNDED = {"dr": 1, "dk": 1, "dv": 1}
+
+
+def _wkv_bwd_tc_emulated(r, k, v, logw, u, s0, dy, dS_last, single=(), exact=False):
+    """(dr, dk, dv, dlogw, du, ds0) as the bf16 kernels form them, chunks of
+    32.  ``single``: operands rounded to one bf16 (lo = 0); ``exact``: no
+    rounding at all (hi = the f32 value, lo = 0), the decomposition alone."""
+    Q, Hb = 32, 16
+    Bb, S, H, D = r.shape
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def heads_first(t):                               # (B,S,H,D) -> (B,H,nc Q,D), zero-padded
+        return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+
+    R, K, V, W, DY = (heads_first(t) for t in (r, k, v, logw, dy))
+
+    def sp(t, name):
+        if exact:
+            return t, torch.zeros_like(t)
+        return _split(t, name, single)
+
+    def ex(t):
+        return t, torch.zeros_like(t)
+
+    def mm(a, b):                                     # a @ b from (hi, lo) pairs: 3 products
+        return a[0] @ b[0] + a[0] @ b[1] + a[1] @ b[0]
+
+    def tr(p):
+        return p[0].mT, p[1].mT
+
+    def chunk(c):
+        s = slice(c * Q, c * Q + Q)
+        cw = torch.cumsum(W[:, :, s], 2)
+        return s, cw, cw - W[:, :, s]
+
+    state = torch.zeros(Bb, H, D, D) if s0 is None else s0.clone()
+    starts = []
+    for c in range(nc):                               # the states walk
+        starts.append(sp(state, "S"))
+        s, cw, _ = chunk(c)
+        kd = K[:, :, s] * torch.exp(cw[:, :, -1:] - cw)
+        state = state * torch.exp(cw[:, :, -1])[..., None] + mm(tr(sp(kd, "kd")), ex(V[:, :, s]))
+    dS = torch.zeros(Bb, H, D, D) if dS_last is None else dS_last.clone()
+    ends = [None] * nc
+    for c in reversed(range(nc)):                     # the dS walk
+        ends[c] = sp(dS, "dS")
+        s, cw, a = chunk(c)
+        rd = R[:, :, s] * torch.exp(a)
+        dS = dS * torch.exp(cw[:, :, -1])[..., None] + mm(tr(sp(rd, "rd")), sp(DY[:, :, s], "dy"))
+
+    lower = torch.tril(torch.ones(Q, Q, dtype=torch.bool), -1)
+    blk = torch.zeros(Q, Q, dtype=torch.bool)
+    blk[:Hb, :Hb] = blk[Hb:, Hb:] = True
+    diag_lower = lower & blk                          # the diagonal blocks' strict lower halves
+    eye = torch.eye(Q, dtype=torch.bool)
+    out = [torch.zeros(Bb, H, nc * Q, D) for _ in range(4)]
+    du = torch.zeros(H, D)
+    for c in range(nc):
+        s, cw, a = chunk(c)
+        rc, kc, vc, dyc = R[:, :, s], K[:, :, s], V[:, :, s], DY[:, :, s]
+        Sp, dSp = starts[c], ends[c]
+        cwb, cwq = cw[:, :, Hb - 1:Hb], cw[:, :, -1:]
+        dyp = sp(dyc, "dy")
+        Dm = mm(dyp, ex(vc.mT))                       # D_ti = dy_t . v_i, f32
+        Dblk = Dm[:, :, Hb:, :Hb]                     # rows t 16-31, columns i 0-15
+        rt = sp(rc[:, :, Hb:] * torch.exp(a[:, :, Hb:] - cwb), "rk~")
+        kt = sp(kc[:, :, :Hb] * torch.exp(cwb - cw[:, :, :Hb]), "rk~")
+        # exact exponents on the diagonal blocks' strict lower halves
+        expo = a[:, :, :, None] - cw[:, :, None, :]   # (B,H,T,I,D)
+        dec = torch.where(diag_lower[:, :, None], torch.exp(torch.where(
+            diag_lower[:, :, None], expo, 0.0)), 0.0)
+        A = torch.einsum("bhtd,bhtid,bhid->bhti", rc, dec, kc)
+        A[:, :, Hb:, :Hb] = mm(rt, tr(kt))
+        A = A + torch.diag_embed(torch.einsum("bhtd,hd,bhtd->bht", rc, u, kc))
+        dr_att = torch.einsum("bhti,bhtid,bhid->bhtd", Dm, dec, kc)
+        dk_att = torch.einsum("bhti,bhtid,bhtd->bhid", Dm, dec, rc)
+        dr_att[:, :, Hb:] += torch.exp(a[:, :, Hb:] - cwb) * mm(sp(Dblk, "D"), kt)
+        dk_att[:, :, :Hb] += torch.exp(cwb - cw[:, :, :Hb]) * mm(sp(Dblk.mT, "D"), rt)
+        dr_att = dr_att + torch.exp(a) * mm(dyp, tr(Sp))
+        dks = torch.exp(cwq - cw) * mm(ex(vc), tr(dSp))
+        dk_att = dk_att + dks
+        kd = kc * torch.exp(cwq - cw)
+        dv = mm(sp(A.mT, "A"), dyp) + mm(sp(kd, "kd"), dSp)
+        dtt = Dm[:, :, eye][..., None]               # D_tt
+        out[0][:, :, s] = dr_att + u[:, None] * kc * dtt
+        out[1][:, :, s] = dk_att + u[:, None] * rc * dtt
+        out[2][:, :, s] = dv
+        du = du + (rc * kc * dtt).sum((0, 2))
+        da = rc * dr_att
+        tot = da - kc * dk_att
+        srow = ((Sp[0] + Sp[1]) * (dSp[0] + dSp[1])).sum(-1)
+        tot[:, :, -1] += torch.exp(cwq[:, :, 0]) * srow + (kc * dks).sum(2)
+        out[3][:, :, s] = torch.flip(torch.cumsum(torch.flip(tot, (2,)), 2), (2,)) - da
+    dr, dk, dv, dw = (t[:, :, :S].permute(0, 2, 1, 3) for t in out)
+    low = r.dtype
+    return dr.to(low), dk.to(low), dv.to(low), dw, du, dS
+
+
+def _wkv_emulated_case(B, S, H, state, decay="uniform", dtype="bfloat16"):
+    _, t = _wkv_inputs(41, B, S, H, 64, dtype)
+    if decay == "model":
+        # the model's per-channel decays, -exp(w0 + lora), over the range a
+        # trained rwkv6 spans (about -0.0025 to -2.7 a step)
+        rng = np.random.default_rng(42)
+        t["logw"] = torch.from_numpy(-np.exp(rng.uniform(-6.0, 1.0, (B, S, H, 64)))).float()
+    args = [t[k] for k in ("r", "k", "v", "logw", "u")]
+    args += [t["s0"] if state else None, t["dy"], t["dS"] if state else None]
+    return args, wkv6_bwd_plain(*args)
+
+
+@pytest.mark.parametrize("B,S,H,state,decay", [
+    (1, 512, 4, False, "uniform"),    # the train sequence, zero state in and no state gradient
+    (2, 512, 2, True, "uniform"),
+    (2, 300, 4, True, "uniform"),     # ragged: nine full chunks and 12 rows
+    (2, 33, 4, True, "uniform"),      # one full chunk and 1 row
+    (1, 512, 4, False, "model"),      # the model's decays
+])
+def test_wkv_bf16_kernel_arithmetic_matches_plain(B, S, H, state, decay):
+    """The bf16 kernels' operand roundings, splits and factored blocks keep
+    every gradient within the limits the card holds the kernels to
+    (_kernel_ok)."""
+    args, want = _wkv_emulated_case(B, S, H, state, decay)
+    _kernel_ok(_wkv_bwd_tc_emulated(*args), want, WKV_NAMES, WKV_SUMMED, WKV_ROUNDED,
+               "bfloat16")
+
+
+@pytest.mark.parametrize("operand", WKV_SPLITS)
+def test_wkv_bf16_kernel_needs_each_split(operand):
+    """Rounding any one split operand to a single bf16 misses those limits."""
+    args, want = _wkv_emulated_case(1, 512, 4, True)
+    got = _wkv_bwd_tc_emulated(*args, single=(operand,))
+    with pytest.raises(AssertionError):
+        _kernel_ok(got, want, WKV_NAMES, WKV_SUMMED, WKV_ROUNDED, "bfloat16")
+
+
+@pytest.mark.parametrize("S,state,decay", [
+    (512, True, "uniform"), (300, True, "uniform"), (33, False, "uniform"), (512, True, "model"),
+])
+def test_wkv_chunk_decomposition_matches_plain(S, state, decay):
+    """The per-chunk formulas alone, fed the walks' S_c and dS_c with no
+    rounding (f32 inputs), reproduce wkv6_bwd_plain at 2e-5."""
+    args, want = _wkv_emulated_case(2, S, 2, state, decay, dtype="float32")
+    got = _wkv_bwd_tc_emulated(*args, exact=True)
+    for name, g, w in zip(WKV_NAMES, got, want):
+        assert _rel(g, w) <= 2e-5, (name, _rel(g, w))
+
+
 # (B, S, H, h0/dh_last, dtype): the zamba2-7b train shape first.
 GPU_SSD_CASES = [
     (4, 512, 112, False, "bfloat16"),
@@ -538,7 +727,26 @@ def test_wkv_backward_kernel_matches_plain(B, S, H, state, dtype, cuda_device):
     torch.cuda.synchronize()
     assert wkv6_bwd.launches == launches + 1
     want = wkv6_bwd_plain(*args)
-    _kernel_ok(got, want, WKV_NAMES, WKV_SUMMED, {"dr": 1, "dk": 1, "dv": 1}, dtype)
+    _kernel_ok(got, want, WKV_NAMES, WKV_SUMMED, WKV_ROUNDED, dtype)
+
+
+@pytest.mark.gpu
+def test_wkv_backward_kernel_is_deterministic(cuda_device):
+    """The bf16 kernels at the rwkv6-1.6b train shape, twice on the same
+    inputs: every gradient bit for bit (no atomics; du's partials of each
+    chunk are summed in a fixed order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, H, hd = 4, 512, 32, 64
+    proj = torch.randn((B, S, 3, H * hd), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    r, k, v = (proj[:, :, i].view(B, S, H, hd) for i in range(3))
+    logw = -(0.02 + 2.98 * torch.rand((B, S, H, hd), generator=gen, device=cuda_device))
+    u = 0.5 * torch.randn((H, hd), generator=gen, device=cuda_device)
+    dy = torch.randn((B, S, H, hd), generator=gen, device=cuda_device)
+    first = wkv6_bwd(r, k, v, logw, u, None, dy, None)
+    second = wkv6_bwd(r, k, v, logw, u, None, dy, None)
+    for name, a, b in zip(WKV_NAMES, first, second):
+        assert torch.equal(a, b), name
 
 
 # The cut configs of chip_smoke.py's REFERENCE, which the kernels take.
