@@ -84,8 +84,10 @@ exits nonzero without printing a result:
             across two runs at the train shape
   train_reference  small llama, zamba2 and rwkv6 (REFERENCE) trained 3 AdamW
             steps on the card and on the CPU from the same weights and
-            batches (batch 2, seq 100), as is, with ga_steps=2 and with gc,
-            in f32 (losses rel 1e-4, every step-1 gradient rel 2e-4) and in
+            batches (batch 2, seq 100), as is, with ga_steps=2, with gc,
+            and through compile_train_step on a one-rank NCCL group under
+            ZeRO-Offload (moments in pinned host memory, checked) and ZeRO-3
+            (FSDP2 around the kernels' autograd functions), in f32 (losses rel 1e-4, every step-1 gradient rel 2e-4) and in
             bf16, which runs the backward's tensor-core flash kernels (losses
             3e-2, gradients 5e-2; for zamba2 and rwkv6 each gradient within
             5e-2 plus twice the CPU's own bf16 error on that leaf, its
@@ -106,6 +108,14 @@ exits nonzero without printing a result:
             share), and for llama2-7b and zamba2-7b a warm-up round and
             SPLIT_ROUNDS more of each timed in two halves (medians):
             forward + backward, then the optimizer update
+  train_offload  llama2-7b at full width, bf16, batch 4, seq 512, through
+            compile_train_step with ExecutionPlan(zero_stage=1, offload=True,
+            gc=True) and OptConfig()'s f32 moments (53.9 GB) in pinned host
+            memory: a warm-up step, then 3 steps with launches counted (flash
+            forward 192, backward 96, 0 plain calls), every moment a pinned
+            CPU tensor, peak device bytes below the GC + bf16-moments run's;
+            step ms, tokens/s, pinned bytes, and OFFLOAD_ROUNDS forward +
+            backward / update splits with the GB/s the moments crossed PCIe
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -124,6 +134,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM dense
 PEAK_BYTES = 3.35e12                                           # H100 SXM HBM3
@@ -1038,17 +1049,34 @@ TRAIN_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (3e-2, 5e-2)}
 NOISY_BF16 = ("zamba2-7b", "rwkv6-1.6b")
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor, or an FSDP2 DTensor gathered whole."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def phase_train_reference():
     """The small models of REFERENCE trained 3 AdamW steps on the card and
-    on the CPU from the same weights and batches, under three plans, in f32
+    on the CPU from the same weights and batches, under five plans, in f32
     and in bf16."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.models import ModelOpts, build
     from repro_torch.parallel.plan import ExecutionPlan
     from repro_torch.train.optimizer import OptConfig, opt_init
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import compile_train_step, make_train_step
 
+    # The card runs the last two plans through compile_train_step on a
+    # one-rank NCCL group (moments in pinned host memory; FSDP2's hooks
+    # around the kernels' autograd functions); the CPU runs make_train_step,
+    # which acts on ga_steps alone, so each plan's CPU side is the same
+    # arithmetic as its card side.
+    plans = {"plain": ExecutionPlan(), "ga_steps=2": ExecutionPlan(ga_steps=2),
+             "gc": ExecutionPlan(gc=True),
+             "offload": ExecutionPlan(zero_stage=1, offload=True),
+             "zero3": ExecutionPlan(zero_stage=3)}
+    mesh = single_device_mesh("cuda")
+    specs = {"tokens": torch.empty((2, 100), dtype=torch.long, device="meta")}
     data = make_source(DataConfig(vocab_size=512, seq_len=100, global_batch=2, seed=SEED))
     batch0 = torch.from_numpy(data.batch(0)).long()
     optcfg = OptConfig(lr=1e-3)
@@ -1056,19 +1084,24 @@ def phase_train_reference():
     for arch, (what, cut) in REFERENCE.items():
         for dtype, (tol_loss, tol_grad) in TRAIN_TOL.items():
             cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
-            for label, plan in (("plain", ExecutionPlan()),
-                                ("ga_steps=2", ExecutionPlan(ga_steps=2)),
-                                ("gc", ExecutionPlan(gc=True))):
+            for label, plan in plans.items():
                 opts = ModelOpts(remat="full" if plan.gc else "none", loss_chunk=0)
                 cpu = build(cfg, device="cpu", seed=SEED, opts=opts)
                 gpu = build(cfg, device="cuda", opts=opts)
                 pc = cpu.init()
-                pg = gpu.load({k: v.cuda() for k, v in pc.state_dict().items()})
+                state = {k: v.cuda() for k, v in pc.state_dict().items()}
+                if plan.zero_stage:
+                    step_g, _, _, _, pg, sg = compile_train_step(gpu, plan, mesh, optcfg, specs,
+                                                                 state=state)
+                else:
+                    pg = gpu.load(state)
+                    sg, step_g = opt_init(pg, optcfg), make_train_step(gpu, plan, optcfg)
                 grads = []
                 for m, p in ((cpu, pc), (gpu, pg)):
                     loss, _ = m.loss(p, {"tokens": batch0.to(m.device)})
                     loss.backward()
-                    grads.append({n: t.grad.detach().cpu() for n, t in p.named_parameters()})
+                    grads.append({n: whole(t.grad).detach().cpu()
+                                  for n, t in p.named_parameters()})
                     p.zero_grad(set_to_none=True)
                 grad_rel = {n: _rel(grads[1][n], g) for n, g in grads[0].items()}
                 noise = {n: 0.0 for n in grad_rel}
@@ -1079,9 +1112,7 @@ def phase_train_reference():
                     noise = {n: _rel(grads[0][n], t.grad) for n, t in p32.named_parameters()}
                     del f32, p32
                 bound = {n: tol_grad + 2 * noise[n] for n in grad_rel}
-                sc, sg = opt_init(pc, optcfg), opt_init(pg, optcfg)
-                step_c = make_train_step(cpu, plan, optcfg)
-                step_g = make_train_step(gpu, plan, optcfg)
+                sc, step_c = opt_init(pc, optcfg), make_train_step(cpu, plan, optcfg)
                 loss_rel, losses = [], []
                 for i in range(3):
                     toks = torch.from_numpy(data.batch(i)).long()
@@ -1101,7 +1132,10 @@ def phase_train_reference():
                 if (max(loss_rel) > tol_loss or grad_rel[tightest] > bound[tightest]
                         or not np.isfinite(losses).all()):
                     failed.append(f"{arch} {dtype} {label}")
-                del pg, sg, gpu, grads
+                if plan.offload and not all(t.is_pinned() for k in ("m", "v")
+                                            for t in sg[k].values()):
+                    failed.append(f"{arch} {dtype} {label}: moments not in pinned host memory")
+                del pg, sg, gpu, grads, step_g
     # The backward ran on autograd's device thread, whose cuBLAS handle kept
     # a workspace of its own: 32 MiB on every later phase's peak memory.
     torch._C._cuda_clearCublasWorkspaces()
@@ -1109,6 +1143,7 @@ def phase_train_reference():
     emit("train_reference", cfg={arch: f"{arch} widths cut to {what}" for arch, (what, _)
                                  in REFERENCE.items()},
          batch="batch 2, seq 100, AdamW lr 1e-3, 3 steps", tol_loss_grad=TRAIN_TOL,
+         plans={label: plan.strategy for label, plan in plans.items()},
          noisy_bf16_bound="tol_grad + 2 x |CPU bf16 - CPU f32| per leaf for " +
          ", ".join(NOISY_BF16), **out)
     if failed:
@@ -1300,6 +1335,8 @@ def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
 TRAINED = {
     "llama2-7b train": lambda cfg, n: {"flash_attention_fwd": 2 * cfg.n_layers * n,
                                        "flash_attention_bwd": cfg.n_layers * n},
+    "llama2-7b train offload": lambda cfg, n: {"flash_attention_fwd": 2 * cfg.n_layers * n,
+                                               "flash_attention_bwd": cfg.n_layers * n},
     "gpt2-1.5b train": lambda cfg, n: {"flash_attention_fwd": cfg.n_layers * n,
                                        "flash_attention_bwd": cfg.n_layers * n},
     "zamba2-7b train": lambda cfg, n: {
@@ -1341,12 +1378,13 @@ def check_launches(path: str, cfg, steps: int, launches, plain_calls) -> None:
 SPLIT_ROUNDS = 3
 
 
-def phase_train_fixed(arch: str, steps: int = 3) -> dict[str, int]:
+def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
     """llama2-7b or zamba2-7b, bf16, batch 4, seq 512, through
     make_train_step with ExecutionPlan(gc=True) and AdamW with bf16 moments
     (f32 moments would need 6.74e9 x 12 bytes = 80.9 GB for llama2-7b), on
     one fixed batch; then a profile of one step, and a step's two halves
-    (forward + backward, the update) timed apart."""
+    (forward + backward, the update) timed apart.  Returns the launches and
+    the peak device bytes of the 3 steps."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.models import ModelOpts, build
@@ -1417,6 +1455,104 @@ def phase_train_fixed(arch: str, steps: int = 3) -> dict[str, int]:
          optimizer_ms=float(np.median(update[1:])), forward_backward_ms_all=fwd_bwd,
          optimizer_ms_all=update)
     del params, opt_state, step, model, batch, metrics, named
+    free_device_memory()
+    return launches, peak
+
+
+OFFLOAD_ROUNDS = 2       # forward + backward, then the update timed alone
+
+
+def phase_train_offload(peak_on_device: int, steps: int = 3) -> dict[str, int]:
+    """llama2-7b at full width, bf16, batch 4, seq 512, through
+    compile_train_step on a one-rank NCCL group with
+    ExecutionPlan(zero_stage=1, offload=True, gc=True) and OptConfig()'s f32
+    moments: 6.74e9 x 8 bytes = 53.9 GB in pinned host memory, which cannot
+    sit on the card beside the weights.  A warm-up step, then `steps` counted
+    ones; every moment must be a pinned CPU tensor and the peak device bytes
+    below `peak_on_device` (the GC + bf16-moments run's); then OFFLOAD_ROUNDS
+    rounds of a forward + backward and the update timed apart, whose moments
+    cross PCIe both ways."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.models import ModelOpts, build
+    from repro_torch.parallel.plan import ExecutionPlan
+    from repro_torch.train.optimizer import OptConfig, opt_update
+    from repro_torch.train.step import compile_train_step
+
+    path = "llama2-7b train offload"
+    cfg = configs.get("llama2-7b")
+    B, S = 4, 512
+    plan = ExecutionPlan(zero_stage=1, offload=True, gc=True)
+    optcfg = OptConfig()
+    free_device_memory()
+    model = build(cfg, device="cuda", seed=SEED, opts=ModelOpts(remat="full", loss_chunk=0))
+    t0 = time.perf_counter()
+    specs = {"tokens": torch.empty((B, S), dtype=torch.long, device="meta")}
+    step, _, o_shard, _, params, opt_state = compile_train_step(
+        model, plan, single_device_mesh("cuda"), optcfg, specs)
+    setup_s = time.perf_counter() - t0
+    moments = [t for k in ("m", "v") for t in opt_state[k].values()]
+    if not all(t.device.type == "cpu" and t.is_pinned() for t in moments):
+        raise AssertionError(f"{path}: a moment is not a pinned CPU tensor")
+    moment_bytes = sum(t.numel() * t.element_size() for t in moments)
+    blocks = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in moments}
+    data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                  seed=SEED))
+    batch = {"tokens": torch.from_numpy(data.batch(0)).long().cuda()}
+    params, opt_state, metrics = step(params, opt_state, batch)      # warm-up
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    reset_counts(counters)
+    times, losses = [], [metrics["loss"].item()]
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+    launches, plain_calls = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(path, cfg, steps, launches, plain_calls)
+    if not all(t.device.type == "cpu" and t.is_pinned() for k in ("m", "v")
+               for t in opt_state[k].values()):
+        raise AssertionError(f"{path}: a moment left pinned host memory")
+    named = dict(params.named_parameters())
+    fwd_bwd, update = [], []
+    for _ in range(OFFLOAD_ROUNDS):
+        for p in named.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.loss(params, batch)[0].backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt_update({n: p.grad for n, p in named.items()}, opt_state, params, optcfg)
+        torch.cuda.synchronize()
+        fwd_bwd.append((t1 - t0) * 1e3)
+        update.append((time.perf_counter() - t1) * 1e3)
+    step_ms = float(np.median(times[1:])) * 1e3
+    update_ms = float(np.median(update))
+    host = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    emit("train_offload", path=path, arch=cfg.name, n_layers=cfg.n_layers,
+         n_params=sum(p.numel() for p in named.values()), dtype="bfloat16", batch=B, seq=S,
+         plan=plan.strategy, optimizer="adamw lr 3e-4 (OptConfig()), f32 moments in pinned "
+         "host memory", moment_memory=sorted({s.memory_kind for s in o_shard["m"].values()}),
+         setup_s=setup_s, steps=steps, losses=losses, step_ms=step_ms,
+         step_ms_all=[t * 1e3 for t in times], tokens_per_s=B * S / step_ms * 1e3,
+         max_memory_allocated=peak, peak_gc_bf16_moments_on_device=peak_on_device,
+         pinned_moment_bytes=moment_bytes, pinned_blocks_bytes=sorted(blocks.values()),
+         host_allocator={k: v for k, v in host.items() if "allocated_bytes" in k or
+                         "reserved_bytes" in k},
+         forward_backward_ms_all=fwd_bwd, optimizer_ms_all=update, optimizer_ms=update_ms,
+         pcie_bytes_per_update=2 * moment_bytes,
+         pcie_gb_per_s_both_ways=2 * moment_bytes / update_ms / 1e6,
+         launches=launches, plain_calls=plain_calls)
+    if not (np.isfinite(losses).all() and peak < peak_on_device):
+        raise AssertionError(f"{path}: losses {losses}, peak {peak} bytes against "
+                             f"{peak_on_device} with the moments on the card")
+    del params, opt_state, step, model, batch, metrics, named, moments
     free_device_memory()
     return launches
 
@@ -1520,10 +1656,13 @@ def main() -> int:
     mains["ssd_scan_bwd"] = phase_ssd_bwd_kernels()
     mains["wkv6_bwd"] = phase_wkv_bwd_kernels()
     phase_train_reference()
+    peaks = {}
     for arch in ("llama2-7b", "zamba2-7b"):
-        by_path[f"{arch} train"] = phase_train_fixed(arch)
+        by_path[f"{arch} train"], peaks[arch] = phase_train_fixed(arch)
     for arch in ("gpt2-1.5b", "rwkv6-1.6b"):
         by_path[f"{arch} train"] = phase_train_launcher(arch)
+    by_path["llama2-7b train offload"] = phase_train_offload(peaks["llama2-7b"])
+    dist.destroy_process_group()
     # wkv6_fwd's launch count holds every call of its wrapper; the S = 1 ones
     # ran the decode kernel, reported as a kernel of its own.
     for counts in by_path.values():

@@ -40,8 +40,8 @@ from repro_torch.models import nn
 from repro_torch.models.api import family_of
 
 _BF16 = "::bf16"
-_STACKED = ("layers", "ssm_layers")   # leading axis: one entry per layer
-_SINGLETON = ("shared",)              # leading axis of 1: one shared block
+STACKED = ("layers", "ssm_layers")   # leading axis: one entry per layer
+SINGLETON = ("shared",)              # leading axis of 1: one shared block
 
 
 def _bf16(bits: np.ndarray) -> torch.Tensor:
@@ -97,13 +97,13 @@ def _unstack(leaves: dict[str, torch.Tensor], cfg: ModelConfig) -> dict[str, tor
     for path, t in leaves.items():
         head, _, rest = path.partition("/")
         name = rest.replace("/", ".")
-        if head in _STACKED and rest:
+        if head in STACKED and rest:
             if t.shape[0] != cfg.n_layers:
                 raise ValueError(f"{path}: leading axis {t.shape[0]} != n_layers "
                                  f"{cfg.n_layers}")
             for i in range(cfg.n_layers):
                 state[f"{head}.{i}.{name}"] = t[i].clone()
-        elif head in _SINGLETON and rest:
+        elif head in SINGLETON and rest:
             if t.shape[0] != 1:
                 raise ValueError(f"{path}: leading axis {t.shape[0]} != 1")
             state[f"{head}.{name}"] = t[0].clone()
@@ -144,10 +144,10 @@ def _stack(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     stacks: dict[str, dict[int, torch.Tensor]] = {}
     for name, t in state.items():
         head, _, rest = name.partition(".")
-        if head in _STACKED:
+        if head in STACKED:
             i, _, leaf = rest.partition(".")
             stacks.setdefault(f"{head}/{leaf.replace('.', '/')}", {})[int(i)] = t
-        elif head in _SINGLETON:
+        elif head in SINGLETON:
             out[f"{head}/{rest.replace('.', '/')}"] = t[None]
         else:
             out[name.replace(".", "/")] = t

@@ -5,10 +5,10 @@ worker can regenerate exactly its shard after an elastic restart or a
 plan reconfiguration (no data-order drift across Rubick reconfigs, which is
 what keeps the loss curves seed-equivalent in the Fig 9 experiment).
 
-A copy of the synthetic source of ``repro.data.pipeline`` (numpy only), so
-that the port and the JAX package train on the same batches.  The
-reference's file-backed source and per-host shards wait for a launcher flag
-and for multi-process training to read them.
+A copy of the synthetic source of ``repro.data.pipeline`` (numpy only), with
+its per-rank ``shard``, so that the port and the JAX package train on the
+same batches.  The reference's file-backed source waits for a launcher flag
+to read it (ROADMAP A14b).
 """
 
 from __future__ import annotations
@@ -47,6 +47,14 @@ class SyntheticTokens:
         b[:, 1:] = np.where(rng.random(b[:, 1:].shape) < 0.7,
                             (b[:, :-1] + key) % cfg.vocab_size, b[:, 1:])
         return b.astype(np.int32)
+
+    def shard(self, step: int, index: int, count: int) -> np.ndarray:
+        """Deterministic per-rank shard for multi-process training: rows
+        ``index``/``count`` of the global batch, so the ranks' shards together
+        are the single-device batch."""
+        full = self.batch(step)
+        per = full.shape[0] // count
+        return full[index * per:(index + 1) * per]
 
 
 def make_source(cfg: DataConfig):

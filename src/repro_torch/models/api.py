@@ -42,20 +42,19 @@ def resolve_device(device) -> torch.device:
 
 @dataclass(frozen=True)
 class Family:
-    """One family's functions: its parameter module, loss and serving steps."""
+    """One family's functions: its parameter module (whose forward is the
+    loss) and serving steps."""
     module: type                  # module(cfg, device, dtype), with reset_parameters(gen)
-    loss: Callable                # (params, batch, cfg, opts) -> (loss, metrics)
     init_cache: Callable          # (cfg, batch, max_len, *, device, dtype) -> cache
     prefill: Callable             # (params, cache, tokens, cfg) -> (cache, logits)
     decode_step: Callable         # (params, cache, tokens, cfg) -> (cache, logits)
 
 
-DECODER = Family(transformer.Decoder, transformer.decoder_loss,
-                 transformer.decoder_init_cache, transformer.decoder_prefill,
-                 transformer.decoder_decode_step)
-HYBRID = Family(hybrid.Hybrid, hybrid.hybrid_loss, hybrid.hybrid_init_cache,
+DECODER = Family(transformer.Decoder, transformer.decoder_init_cache,
+                 transformer.decoder_prefill, transformer.decoder_decode_step)
+HYBRID = Family(hybrid.Hybrid, hybrid.hybrid_init_cache,
                 hybrid.hybrid_prefill, hybrid.hybrid_decode_step)
-RWKV = Family(rwkv_model.RWKV, rwkv_model.rwkv_loss, rwkv_model.rwkv_init_cache,
+RWKV = Family(rwkv_model.RWKV, rwkv_model.rwkv_init_cache,
               rwkv_model.rwkv_prefill, rwkv_model.rwkv_decode_step)
 
 _LATER = (("n_experts", "MoE: ROADMAP A15"), ("mla", "MLA: ROADMAP A15"),
@@ -114,8 +113,9 @@ class Model:
         return params.eval()
 
     def loss(self, params, batch: dict):
-        """(scalar loss, metrics) of a batch {"tokens": (B, S)}; differentiable."""
-        return self.family.loss(params, batch, self.cfg, self.opts)
+        """(scalar loss, metrics) of a batch {"tokens": (B, S)}; differentiable.
+        Called through the module (its ``forward``), so hooks on it run."""
+        return params(batch, self.opts)
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         """Allocation-free stand-ins (tensors on the ``meta`` device) for every

@@ -41,6 +41,14 @@ class SSMLayer(tnn.Module):
         self.ln = nn.param(cfg.d_model, device=device, dtype=dtype)
         self.mixer = mamba2.Mamba2(cfg, device, dtype)
 
+    def forward(self, shared: Block, x, cfg: ModelConfig, positions, with_shared: bool,
+                remat: bool = False):
+        """:func:`_layer_apply`; under ``remat`` recomputed in the backward."""
+        args = (self, shared, x, cfg, positions, with_shared)
+        if remat:
+            return checkpoint(_layer_apply, *args, use_reentrant=False)
+        return _layer_apply(*args)
+
 
 class Hybrid(tnn.Module):
     """emb (V, D), ln_f (D,), head (D, V), ssm_layers[0..L), shared (one
@@ -55,6 +63,10 @@ class Hybrid(tnn.Module):
         self.ssm_layers = tnn.ModuleList(SSMLayer(cfg, device, dtype)
                                          for _ in range(cfg.n_layers))
         self.shared = Block(cfg, device, dtype)
+
+    def forward(self, batch: dict, opts: ModelOpts):
+        """(loss, metrics) of a batch: :func:`hybrid_loss`."""
+        return hybrid_loss(self, batch, self.cfg, opts)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -85,11 +97,7 @@ def hybrid_forward(params: Hybrid, batch: dict, cfg: ModelConfig, opts: ModelOpt
     x = nn.embed_lookup(params.emb, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i, lp in enumerate(params.ssm_layers):
-        args = (lp, params.shared, x, cfg, positions, _applies_shared(cfg, i))
-        if opts.remat == "full":
-            x = checkpoint(_layer_apply, *args, use_reentrant=False)
-        else:
-            x = _layer_apply(*args)
+        x = lp(params.shared, x, cfg, positions, _applies_shared(cfg, i), opts.remat == "full")
     return nn.rmsnorm(x, params.ln_f, cfg.norm_eps)
 
 

@@ -7,13 +7,25 @@ casts back to the input's dtype; the gated FFN splits ``h`` into
 (``jax.nn.gelu``'s default); RoPE rotates split halves with f32 angles;
 the cross-entropy takes f32 logits.  Weights are stored (in, out) as in the
 reference, so a layer is ``x @ w``.
+
+Tensor parallelism (Megatron's f/g pair): under a :class:`TP` group each
+rank holds its columns of a column-split weight and its rows of a row-split
+one.  :func:`tp_copy` (identity forward, all-reduce of the gradient) enters
+a column-split matmul, :func:`tp_reduce` (all-reduce forward, identity
+backward) leaves a row-split one.  The embedding and the cross-entropy are
+vocab-parallel: each rank holds ``V / tp`` rows of ``emb`` (columns of
+``head``), looks up the tokens that fall in them and adds over the group,
+and forms logsumexp and the gold logit from its slice of the logits.  With
+``tp=None`` every one of these is the single-device function.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn as tnn
 
@@ -27,6 +39,63 @@ def param(*shape, device, dtype) -> tnn.Parameter:
     """An uninitialised trainable parameter.  The serving entry points run
     under ``torch.no_grad()``, so they build no graph."""
     return tnn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TP:
+    """A tensor-parallel group: this rank's index in it and its size."""
+    group: object
+    rank: int
+    size: int
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor, tp: TP | None) -> torch.Tensor:
+    """Enter a tensor-parallel region: identity forward, gradient summed
+    over the group (every rank's slice of the next matmul contributes)."""
+    return x if tp is None else _CopyToTP.apply(x, tp.group)
+
+
+def tp_reduce(x: torch.Tensor, tp: TP | None) -> torch.Tensor:
+    """Leave a tensor-parallel region: the ranks' partial results summed."""
+    return x if tp is None else _ReduceFromTP.apply(x, tp.group)
+
+
+def tp_slice(b: torch.Tensor, width: int, tp: TP | None) -> torch.Tensor:
+    """This rank's ``width`` entries of a replicated bias (the reference keeps
+    ``bq``/``bk``/``bv`` whole on every rank); its gradient is summed over
+    the group, so every rank holds the whole bias's gradient."""
+    if tp is None:
+        return b
+    return tp_copy(b, tp).narrow(-1, tp.rank * width, width)
 
 
 # ---------------------------------------------------------------------------
@@ -119,27 +188,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, emb)
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor, tp: TP | None = None) -> torch.Tensor:
+    """Rows of ``emb`` for ``tokens``; under ``tp`` each rank holds rows
+    ``[rank·V/tp, (rank+1)·V/tp)`` and the ranks' lookups are added."""
+    if tp is None:
+        return F.embedding(tokens, emb)
+    n = emb.shape[0]
+    local = tokens - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    out = F.embedding(local.clamp(0, n - 1), emb)
+    return tp_reduce(out.masked_fill(~inside[..., None], 0), tp)
+
+
+def _vocab_parallel_logz_gold(logits: torch.Tensor, y: torch.Tensor, tp: TP):
+    """logsumexp over the whole vocabulary and the gold logit, from this
+    rank's slice ``[rank·V/tp, (rank+1)·V/tp)`` of f32 logits."""
+    n = logits.shape[-1]
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    logz = m[..., 0] + torch.log(tp_reduce(torch.exp(logits - m).sum(-1), tp))
+    local = y.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return logz, tp_reduce(gold.masked_fill(~inside, 0), tp)
 
 
 def cross_entropy_loss(logits_fn, hidden: torch.Tensor, labels: torch.Tensor,
-                       mask: torch.Tensor | None = None, chunk: int = 0) -> torch.Tensor:
+                       mask: torch.Tensor | None = None, chunk: int = 0,
+                       tp: TP | None = None) -> torch.Tensor:
     """Next-token CE, the masked mean of logsumexp(logits) - gold logit, with
     the logits ``logits_fn(h) -> (..., V)`` cast to f32.
 
     ``chunk`` > 0 (and dividing S, with S > chunk) evaluates the vocab
     projection and the CE one sequence chunk at a time, as the reference's
     ``lax.map`` does, so the whole (B, S, V) f32 logits tensor is never
-    formed at once in the forward."""
+    formed at once in the forward.  Under ``tp`` ``logits_fn`` gives this
+    rank's vocabulary slice and the loss is vocab-parallel."""
     B, S, _ = hidden.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
 
     def chunk_loss(h, y, m):
         logits = logits_fn(h).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        if tp is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        else:
+            logz, gold = _vocab_parallel_logz_gold(logits, y, tp)
         return ((logz - gold) * m).sum(), m.sum()
 
     if chunk and S > chunk and S % chunk == 0:

@@ -31,6 +31,12 @@ class RWKVLayer(tnn.Module):
         self.tm = rwkv6.TimeMix(cfg, device, dtype)
         self.cm = rwkv6.ChannelMix(cfg, device, dtype)
 
+    def forward(self, x, cfg: ModelConfig, remat: bool = False):
+        """:func:`_layer_train`; under ``remat`` recomputed in the backward."""
+        if remat:
+            return checkpoint(_layer_train, self, x, cfg, use_reentrant=False)
+        return _layer_train(self, x, cfg)
+
 
 class RWKV(tnn.Module):
     """emb (V, D), ln0_g/b and ln_f_g/b (D,) f32, head (D, V), layers[0..L)."""
@@ -48,6 +54,10 @@ class RWKV(tnn.Module):
         self.ln_f_g = nn.param(D, **f32)
         self.ln_f_b = nn.param(D, **f32)
         self.head = nn.param(D, cfg.vocab_size, device=device, dtype=dtype)
+
+    def forward(self, batch: dict, opts: ModelOpts):
+        """(loss, metrics) of a batch: :func:`rwkv_loss`."""
+        return rwkv_loss(self, batch, self.cfg, opts)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -99,10 +109,7 @@ def rwkv_forward(params: RWKV, batch: dict, cfg: ModelConfig, opts: ModelOpts):
     x = nn.layernorm(nn.embed_lookup(params.emb, batch["tokens"]), params.ln0_g,
                      params.ln0_b, cfg.norm_eps)
     for lp in params.layers:
-        if opts.remat == "full":
-            x = checkpoint(_layer_train, lp, x, cfg, use_reentrant=False)
-        else:
-            x = _layer_train(lp, x, cfg)
+        x = lp(x, cfg, opts.remat == "full")
     return nn.layernorm(x, params.ln_f_g, params.ln_f_b, cfg.norm_eps)
 
 

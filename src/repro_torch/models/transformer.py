@@ -12,6 +12,15 @@ allocated once by :func:`decoder_init_cache` and written IN PLACE by prefill
 and decode (the reference donates the cache buffer to its jitted step and
 gets a new one back; here the same buffer is updated and returned).
 Sliding-window models keep a ring buffer of at most ``window`` slots.
+
+Training runs through the modules (``Decoder.forward`` is the loss, each
+``Block.forward`` a layer), so that hooks on them (FSDP2's, under ZeRO-3)
+run.  Under tensor parallelism (``Decoder.tp``, set by
+``repro_torch.parallel.layout``) each rank holds its heads' columns of
+``wq``/``wk``/``wv``, its rows of ``wo``, its columns of both halves of
+``wi`` and its rows of the FFN's ``wo``, and its vocabulary slice of
+``emb``/``head``; the layer functions take the local head count from the
+weights and the f/g all-reduces from ``models.nn``.
 """
 
 from __future__ import annotations
@@ -95,6 +104,14 @@ class Block(tnn.Module):
         self.attn.reset_parameters(gen)
         self.mlp.reset_parameters(gen)
 
+    def forward(self, x, cfg: ModelConfig, positions, remat: bool = False,
+                tp: nn.TP | None = None):
+        """The block over a full sequence; under ``remat`` its activations are
+        recomputed in the backward."""
+        if remat:
+            return checkpoint(block_apply, self, x, cfg, positions, tp, use_reentrant=False)
+        return block_apply(self, x, cfg, positions, tp)
+
 
 class Decoder(tnn.Module):
     """emb (V, D), ln_f (D,), head (D, V) unless tied, layers[0..L)."""
@@ -108,6 +125,11 @@ class Decoder(tnn.Module):
             self.head = nn.param(cfg.d_model, cfg.vocab_size, device=device, dtype=dtype)
         self.layers = tnn.ModuleList(Block(cfg, device, dtype)
                                      for _ in range(cfg.n_layers))
+        self.tp: nn.TP | None = None          # tensor-parallel group, if split
+
+    def forward(self, batch: dict, opts: ModelOpts):
+        """(loss, metrics) of a batch: :func:`decoder_loss`."""
+        return decoder_loss(self, batch, self.cfg, opts)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -127,17 +149,21 @@ class Decoder(tnn.Module):
 # Attention pieces
 # ---------------------------------------------------------------------------
 
-def qkv(p: Attention, x, cfg: ModelConfig, positions):
+def qkv(p: Attention, x, cfg: ModelConfig, positions, tp: nn.TP | None = None):
+    """q (B,S,Hq,hd), k, v (B,S,Hkv,hd): the heads of this rank's columns
+    (all of them without ``tp``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p.wq
     k = x @ p.wk
     v = x @ p.wv
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = nn.apply_rope(q.view(B, S, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = nn.apply_rope(k.view(B, S, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    return q, k, v.view(B, S, cfg.n_kv_heads, hd)
+        q = q + nn.tp_slice(p.bq, q.shape[-1], tp)
+        k = k + nn.tp_slice(p.bk, k.shape[-1], tp)
+        v = v + nn.tp_slice(p.bv, v.shape[-1], tp)
+    q = nn.apply_rope(q.view(B, S, -1, hd), positions, cfg.rope_theta)
+    k = nn.apply_rope(k.view(B, S, -1, hd), positions, cfg.rope_theta)
+    return q, k, v.view(B, S, -1, hd)
 
 
 def attn_decode(p: Attention, x, cfg: ModelConfig, k_cache, v_cache, length: int):
@@ -160,15 +186,15 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, k_cache, v_cache, length: int
 # Training forward and loss
 # ---------------------------------------------------------------------------
 
-def block_apply(lp: Block, x, cfg: ModelConfig, positions):
+def block_apply(lp: Block, x, cfg: ModelConfig, positions, tp: nn.TP | None = None):
     """Pre-norm residual block over a full sequence."""
     B, S, _ = x.shape
-    h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
-    q, k, v = qkv(lp.attn, h, cfg, positions)
+    h = nn.tp_copy(nn.rmsnorm(x, lp.ln1, cfg.norm_eps), tp)
+    q, k, v = qkv(lp.attn, h, cfg, positions, tp)
     o = attention(q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + o.reshape(B, S, -1) @ lp.attn.wo
-    h = nn.rmsnorm(x, lp.ln2, cfg.norm_eps)
-    return x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
+    x = x + nn.tp_reduce(o.reshape(B, S, -1) @ lp.attn.wo, tp)
+    h = nn.tp_copy(nn.rmsnorm(x, lp.ln2, cfg.norm_eps), tp)
+    return x + nn.tp_reduce(nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act), tp)
 
 
 def decoder_forward(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts):
@@ -178,13 +204,11 @@ def decoder_forward(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelO
     attention forward runs twice per layer."""
     if opts.remat not in ("none", "full"):
         raise NotImplementedError(f"remat={opts.remat!r}: the port takes 'none' or 'full'")
-    x = nn.embed_lookup(params.emb, batch["tokens"])
+    tp = params.tp
+    x = nn.embed_lookup(params.emb, batch["tokens"], tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params.layers:
-        if opts.remat == "full":
-            x = checkpoint(block_apply, lp, x, cfg, positions, use_reentrant=False)
-        else:
-            x = block_apply(lp, x, cfg, positions)
+        x = lp(x, cfg, positions, opts.remat == "full", tp)
     return nn.rmsnorm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -196,7 +220,9 @@ def decoder_loss(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
-    loss = nn.cross_entropy_loss(params.logits, h, labels, mask, chunk=opts.loss_chunk)
+    tp = params.tp
+    loss = nn.cross_entropy_loss(lambda hh: params.logits(nn.tp_copy(hh, tp)), h, labels,
+                                 mask, chunk=opts.loss_chunk, tp=tp)
     return loss, {"ce": loss}
 
 

@@ -1,1 +1,2 @@
-"""Execution plans: a copy of ``repro.parallel.plan`` (single device)."""
+"""Execution plans and their placements: copies of ``repro.parallel.plan``,
+``sharding`` and ``axes``, and this rank's layout (``layout``)."""

@@ -2,12 +2,14 @@
 ``repro.parallel.plan.ExecutionPlan`` (fields, ``strategy``, ``validate``)
 so that a plan means the same thing on both sides of a restart.
 
-The port trains on one device, as the reference's launcher does (it jits the
-step with no shardings, ``repro/launch/train.py:55``).  So only ``ga_steps``
-(gradient accumulation over microbatches) and ``gc`` (gradient
-checkpointing: ``ModelOpts(remat="full")``) act; ``dp``, ``tp``, ``pp``,
-``zero_stage``, ``offload`` and ``sp`` are carried and named but do nothing
-until the parallel plans are ported (ROADMAP A14).
+``repro_torch.train.step.compile_train_step`` acts on the plan over a
+``torch.distributed`` mesh: ``dp`` (replicas, gradients all-reduced),
+``zero_stage`` 1 (moments sharded) and 3 (FSDP2), ``tp`` (the dense
+decoders' column/row split), ``offload`` (moments in pinned host memory),
+``ga_steps`` and ``gc``.  ``pp > 1`` and ``sp`` raise there (ROADMAP A14b).
+``make_train_step`` and the launcher stay on one device, as the
+reference's do (it jits the step with no shardings,
+``repro/launch/train.py:55``): there only ``ga_steps`` and ``gc`` act.
 """
 
 from __future__ import annotations

@@ -16,6 +16,13 @@ to the host before ``save`` returns, so the training loop may update the
 params and moments in place while the thread writes.  An optional recorder (anything with
 ``span(name, t0, t1, step, **attrs)``, such as ``repro.obs``'s) gets a
 ``checkpoint-save`` and a ``checkpoint-restore`` span.
+
+Checkpoints are plan-agnostic, as the reference's are: a sharded run
+(``layout=`` the ``compile_train_step`` step's ``layout``) gathers every
+leaf whole in the reference's layout on every rank, rank 0 writes it (and a
+blocking save ends in a barrier), and a restore under any plan copies each
+rank's pieces out of the whole leaves.  Moments in host memory are read
+only after the device has finished writing them.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 
@@ -61,16 +69,27 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, params, opt_state: dict | None = None,
-             meta: dict | None = None, block: bool = False) -> Path:
+             meta: dict | None = None, block: bool = False, layout=None) -> Path:
         """Atomic save of params (an ``nn.Module`` or a state dict) and the
-        optimizer state; async unless ``block``."""
+        optimizer state; async unless ``block``.  With a ``layout`` every rank
+        calls it and rank 0 writes."""
         self.wait()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()    # offloaded moments: the copies out have landed
+        target = self.dir / f"step_{step:09d}"
+        if layout is not None:
+            params = layout.full_params(params)
+            if opt_state is not None:
+                opt_state = layout.full_opt(opt_state)
+            if layout.rank != 0:
+                if block:
+                    dist.barrier()
+                return target
         arrays = convert.params_to_jax_numpy(_state(params), flat=True)
         if opt_state is not None:
             arrays.update(convert.opt_state_to_jax_numpy(opt_state, flat=True))
         meta = dict(meta or {})
         meta["step"] = step
-        target = self.dir / f"step_{step:09d}"
 
         def _write():
             t0 = perf_counter()
@@ -101,6 +120,8 @@ class CheckpointManager:
             self._thread.start()
         else:
             _write()
+            if layout is not None:
+                dist.barrier()
         return target
 
     def wait(self) -> None:
@@ -141,13 +162,16 @@ class CheckpointManager:
 
     @torch.no_grad()
     def restore(self, params: torch.nn.Module, opt_state: dict | None = None,
-                step: int | None = None) -> tuple[torch.nn.Module, dict | None, dict]:
+                step: int | None = None, layout=None) -> tuple[torch.nn.Module, dict | None,
+                                                               dict]:
         """Copy a step (the latest by default) into ``params`` (the model's
         module, whose ``cfg`` names the layout) and ``opt_state``, in place,
-        on their devices and in their dtypes.  Returns (params, opt_state,
-        meta)."""
+        on their devices and in their dtypes; with a ``layout``, this rank's
+        pieces of each leaf.  Returns (params, opt_state, meta)."""
         t0 = perf_counter()
         self.wait()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()    # offloaded moments: no copy is still in flight
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -155,14 +179,19 @@ class CheckpointManager:
         arrays = dict(np.load(d / "arrays.npz"))
         meta = json.loads((d / "meta.json").read_text())
         cfg = params.cfg
-        params.load_state_dict(convert.params_from_jax_numpy(arrays, cfg), strict=True)
+        state = convert.params_from_jax_numpy(arrays, cfg)
+        if layout is None:
+            params.load_state_dict(state, strict=True)
+        else:
+            layout.load_params(params, state)
         if opt_state is not None:
             saved = convert.opt_state_from_jax_numpy(arrays, cfg)
             for k in ("m", "v"):
                 if (k in saved) != (k in opt_state):
                     raise KeyError(f"checkpoint and optimizer disagree on moment {k!r}")
                 for name, t in opt_state.get(k, {}).items():
-                    t.copy_(saved[k][name])
+                    whole = saved[k][name]
+                    t.copy_(whole if layout is None else layout.opt_piece(name, whole))
             opt_state["count"] = saved["count"]
         if self.recorder is not None:
             self.recorder.span("checkpoint-restore", t0, perf_counter(), float(step))
