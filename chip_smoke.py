@@ -29,7 +29,8 @@ exits nonzero without printing a result:
               max|plain| of that row, at f32 2e-4 and bf16 3e-2 (the bounds
               of tests/test_kernels.py); lse, f32 on both sides for every
               input dtype, at 2e-4 absolute; SDPA as the library yardstick,
-              and kernel_vs_library = kernel ms / SDPA ms;
+              and kernel_vs_library = kernel ms / SDPA ms; the profile
+              phase's gpt2-1.5b shape (b 16 x s 1024) among the cases;
             ssd_scan_fwd: y held at max|Δ| / max|plain| <= f32 2e-5, bf16
               3e-2, h_last at 2e-5 relative (tests/test_kernels.py:73);
             wkv6_fwd: y and S_last at 2e-5 relative (tests/test_kernels.py:88),
@@ -53,7 +54,8 @@ exits nonzero without printing a result:
             with its share of the busy time) and the device's idle share
   bwd_kernels  flash_attention_bwd (dq, dk, dv) against flash_attention_bwd_plain
             on the same inputs, max|Δ| / max|plain| of each at f32 2e-4 and
-            bf16 3e-2, at the llama2-7b and gpt2-1.5b train shapes, ragged S,
+            bf16 3e-2, at the llama2-7b and gpt2-1.5b train shapes and the
+            profile phase's gpt2-1.5b shape (b 16 x s 1024), ragged S,
             Sq < Sk, a window, GQA 64:8 and every head dim; kernel ms by
             CUDA-graph replay (eager beside it), plain ms, the bound (5
             products a pair, 10 d operations, against the bytes of q, k, v,
@@ -115,7 +117,26 @@ exits nonzero without printing a result:
             forward 192, backward 96, 0 plain calls), every moment a pinned
             CPU tensor, peak device bytes below the GC + bf16-moments run's;
             step ms, tokens/s, pinned bytes, and OFFLOAD_ROUNDS forward +
-            backward / update splits with the GB/s the moments crossed PCIe
+            backward / update splits with the GB/s the moments crossed PCIe;
+            then each direction's rate alone (PCIE_REPS copies of the
+            largest moment leaf to the card, then back, by CUDA events)
+  profile   Rubick's profiling -> fit -> predict loop on the card:
+            repro_torch.core.oracle.TorchMicroOracle times gpt2-1.5b's own
+            step at batch 4 x 512, then measures (a warm-up step, the median
+            of 3 wall-clock steps) each one-card plan of PROFILE_FIT and
+            PROFILE_HELD_OUT at the paper's Table 2 shape, b 16 x s 1024,
+            OptConfig()'s f32 moments, under env_for_gpu("h100"); per plan
+            T_iter, peak device bytes, pinned host bytes and the memory
+            model's verdict; the performance model fitted to PROFILE_FIT with
+            both engines under TABLE2's A800-derived t_fwd_unit, each fit's
+            RMSLE and the held-out (avg, max) relative error against the
+            paper's 7.4% / 10.4%; the measured t_fwd_unit beside TABLE2's;
+            flash launches counted over the phase (0 plain calls; both flash
+            kernels are held to their plain versions at the phase's b 16 x
+            s 1024 in kernels and bwd_kernels).  Fails on a time that is not
+            finite and positive, a step loss that is not finite, a fit that
+            is not finite or a wrong launch count; an out-of-memory error is
+            not caught
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -320,6 +341,7 @@ CASES = [
     ("llama2-7b S=4096", 4, 4096, 4096, 32, 32, 128, True, 0, torch.bfloat16),
     ("gemma-2b MQA d=256", 4, 512, 512, 8, 1, 256, True, 0, torch.bfloat16),
     ("gpt2-1.5b d=64", 4, 512, 512, 25, 25, 64, True, 0, torch.bfloat16),
+    ("gpt2-1.5b profile d=64", 16, 1024, 1024, 25, 25, 64, True, 0, torch.bfloat16),
     ("starcoder2-3b window 4096, S=8192", 1, 8192, 8192, 24, 2, 128, True, 4096, torch.bfloat16),
     ("Sq < Sk (chunk 128 after 512)", 4, 128, 640, 32, 32, 128, True, 0, torch.bfloat16),
     ("ragged S=1000", 2, 1000, 1000, 32, 32, 128, True, 0, torch.bfloat16),
@@ -395,11 +417,13 @@ def phase_kernels():
 
 
 # (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype); the first is the
-# llama2-7b train path's shape (batch 4, seq 512), the third gpt2-1.5b's.
+# llama2-7b train path's shape (batch 4, seq 512), the third gpt2-1.5b's, the
+# fourth the profile phase's (b 16 x s 1024; GA 2 and 4 split it in 8 and 4).
 BWD_CASES = [
     ("llama2-7b train", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16),
     ("llama2-7b train f32", 4, 512, 512, 32, 32, 128, True, 0, torch.float32),
     ("gpt2-1.5b train d=64", 4, 512, 512, 25, 25, 64, True, 0, torch.bfloat16),
+    ("gpt2-1.5b profile d=64", 16, 1024, 1024, 25, 25, 64, True, 0, torch.bfloat16),
     ("ragged S=17", 2, 17, 17, 8, 8, 128, True, 0, torch.bfloat16),
     ("ragged S=65 f32", 2, 65, 65, 8, 8, 128, True, 0, torch.float32),
     ("ragged S=100 d=64", 2, 100, 100, 8, 8, 64, True, 0, torch.bfloat16),
@@ -1366,8 +1390,11 @@ def free_device_memory() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def check_launches(path: str, cfg, steps: int, launches, plain_calls) -> None:
-    want = TRAINED[path](cfg, steps)
+def check_launches(path: str, cfg, steps: int, launches, plain_calls,
+                   want: dict[str, int] | None = None) -> None:
+    """Each kernel launched exactly as `want` (by default TRAINED[path] over
+    `steps` steps) says, the others never, and no plain version called."""
+    want = TRAINED[path](cfg, steps) if want is None else want
     expected = {name: want.get(name, 0) for name in launches}
     if launches != expected or any(plain_calls.values()):
         raise AssertionError(f"{path}: {steps} steps made {launches} kernel launches and "
@@ -1534,6 +1561,7 @@ def phase_train_offload(peak_on_device: int, steps: int = 3) -> dict[str, int]:
         update.append((time.perf_counter() - t1) * 1e3)
     step_ms = float(np.median(times[1:])) * 1e3
     update_ms = float(np.median(update))
+    one_way = pcie_one_way(max(moments, key=lambda t: t.numel()))
     host = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
     emit("train_offload", path=path, arch=cfg.name, n_layers=cfg.n_layers,
          n_params=sum(p.numel() for p in named.values()), dtype="bfloat16", batch=B, seq=S,
@@ -1547,7 +1575,7 @@ def phase_train_offload(peak_on_device: int, steps: int = 3) -> dict[str, int]:
                          "reserved_bytes" in k},
          forward_backward_ms_all=fwd_bwd, optimizer_ms_all=update, optimizer_ms=update_ms,
          pcie_bytes_per_update=2 * moment_bytes,
-         pcie_gb_per_s_both_ways=2 * moment_bytes / update_ms / 1e6,
+         pcie_gb_per_s_both_ways=2 * moment_bytes / update_ms / 1e6, **one_way,
          launches=launches, plain_calls=plain_calls)
     if not (np.isfinite(losses).all() and peak < peak_on_device):
         raise AssertionError(f"{path}: losses {losses}, peak {peak} bytes against "
@@ -1555,6 +1583,30 @@ def phase_train_offload(peak_on_device: int, steps: int = 3) -> dict[str, int]:
     del params, opt_state, step, model, batch, metrics, named, moments
     free_device_memory()
     return launches
+
+
+PCIE_REPS = 8
+
+
+def pcie_one_way(host: torch.Tensor) -> dict:
+    """The rate of one direction of PCIe alone: PCIE_REPS copies of a pinned
+    host tensor (the largest moment leaf) to the card, then as many back
+    into it (the same values), each direction timed by CUDA events after a
+    warm-up copy.  GB/s are 1e9 bytes a second."""
+    dev = torch.empty_like(host, device="cuda")
+    nbytes = host.numel() * host.element_size()
+    out = {"pcie_one_way_bytes": nbytes}
+    for key, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        dst.copy_(src, non_blocking=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PCIE_REPS):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out[f"pcie_gb_per_s_{key}"] = PCIE_REPS * nbytes / start.elapsed_time(end) / 1e6
+    del dev
+    return out
 
 
 def phase_train_trace(path: str, run_step, shares: dict[str, str]) -> None:
@@ -1628,6 +1680,132 @@ def phase_train_launcher(arch: str, steps: int = 3) -> dict[str, int]:
     return launches
 
 
+# The profile phase: gpt2-1.5b as the paper's Table 2 profiles it (b 16, s
+# 1024).  The fit set is the paper's profiling set (src/repro/core/oracle.py:
+# 169-181) cut to its plans that take one GPU, at Alloc(1, 12); the held-out
+# plans are other one-card plans, measured where the memory model calls them
+# feasible.
+PROFILE_ARCH = "gpt2-1.5b"
+PROFILE_FIT = ({"zero_stage": 1}, {"zero_stage": 3, "gc": True},
+               {"zero_stage": 1, "offload": True},
+               {"zero_stage": 1, "offload": True, "gc": True})
+PROFILE_HELD_OUT = ({"ga_steps": 2}, {"ga_steps": 4}, {"gc": True},
+                    {"zero_stage": 1, "offload": True, "ga_steps": 2},
+                    {"zero_stage": 3, "gc": True, "ga_steps": 2})
+PROFILE_MICRO = (4, 512)          # TorchMicroOracle's own step: batch, seq
+
+
+def flash_launches(cfg, plan, steps: int) -> dict[str, int]:
+    """Flash launches of `steps` steps of a dense decoder under `plan`: each
+    microbatch runs every layer's forward once (twice under GC) and its
+    backward once."""
+    fwd = cfg.n_layers * plan.ga_steps * steps
+    return {"flash_attention_fwd": fwd * (2 if plan.gc else 1), "flash_attention_bwd": fwd}
+
+
+def phase_profile() -> dict[str, int]:
+    """Rubick's profiling -> fit -> predict loop on the card: TorchMicroOracle
+    times gpt2-1.5b's one-card plans at full width (each plan: a warm-up step,
+    then the median of 3 wall-clock steps), the performance model is fitted to
+    the fit set with both engines, and the held-out plans are predicted (the
+    paper's Table 2 metric).  Fails only on a time that is not finite and
+    positive, a step loss that is not finite, a fit that is not finite, or a
+    wrong launch count; the errors themselves are findings."""
+    from repro_torch import configs
+    from repro_torch.core import memory
+    from repro_torch.core.oracle import TorchMicroOracle
+    from repro_torch.core.paper_models import TABLE2
+    from repro_torch.core.perfmodel import (Alloc, env_for_gpu, fit, predict_titer_batch,
+                                            prediction_error, rmsle, sample_arrays)
+    from repro_torch.parallel.plan import ExecutionPlan
+
+    path = f"{PROFILE_ARCH} profile"
+    cfg = configs.get(PROFILE_ARCH)
+    profile = TABLE2[PROFILE_ARCH]
+    env = env_for_gpu("h100")
+    alloc = Alloc(1, 12)
+    free_device_memory()
+    counters = kernel_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    oracle = TorchMicroOracle(cfg, *PROFILE_MICRO, device="cuda", seed=SEED, env=env)
+    micro_loss = oracle.last["loss"]
+    if not np.isfinite(micro_loss).all():
+        raise AssertionError(f"{path}: the micro step's losses are {micro_loss}")
+    plain = ExecutionPlan()
+    want = flash_launches(cfg, plain, 1 + oracle.steps)
+    n_steps = 1 + oracle.steps
+    rows, samples = [], {"fit": [], "held_out": []}
+    for role, plans in (("fit", PROFILE_FIT), ("held_out", PROFILE_HELD_OUT)):
+        for kw in plans:
+            plan = ExecutionPlan(**kw)
+            est = memory.estimate(profile, plan, alloc, env)
+            feasible = memory.feasible(profile, plan, alloc, env)
+            t = oracle.measure(profile, plan, alloc, env=env)
+            row = {"role": role, "plan": kw, "strategy": plan.strategy,
+                   "memory_model": {"feasible": feasible, "gpu_bytes": est.gpu_bytes,
+                                    "host_bytes": est.host_bytes, "gpu_mem": env.gpu_mem}}
+            if feasible:
+                loss = oracle.last["loss"]
+                if not (np.isfinite(t) and t > 0 and np.isfinite(loss).all()):
+                    raise AssertionError(f"{path}: {plan.strategy} measured {t} s, "
+                                         f"losses {loss}")
+                row.update(t_iter_ms=t * 1e3, step_ms_all=[x * 1e3 for x in oracle.last["step_s"]],
+                           loss=loss,
+                           peak_device_bytes=oracle.last["peak_device_bytes"],
+                           pinned_host_bytes=oracle.last["pinned_host_bytes"])
+                samples[role].append((plan, alloc, t))
+                for name, n in flash_launches(cfg, plan, 1 + oracle.steps).items():
+                    want[name] += n
+                n_steps += 1 + oracle.steps
+            elif role == "fit":
+                raise AssertionError(f"{path}: the memory model calls fit plan "
+                                     f"{plan.strategy} infeasible")
+            rows.append(row)
+            emit("profile_plan", path=path, **row)
+    launches, plain_calls = read_counts(counters)
+    check_launches(path, cfg, n_steps, launches, plain_calls, want)
+    measure_s = time.perf_counter() - t0
+
+    # TABLE2's t_fwd_unit is derived from the A800's bf16 peak
+    # (paper_models.py); the unit measured here is printed beside it.
+    cols, gpus, cpus, per_node, true = sample_arrays(samples["fit"], env)
+    every = samples["fit"] + samples["held_out"]
+    all_cols, all_gpus, all_cpus, all_node, _ = sample_arrays(every, env)
+    fits = {}
+    for engine in ("batched", "scalar"):
+        t1 = time.perf_counter()
+        k = fit(profile, samples["fit"], env=env, engine=engine)
+        fit_s = time.perf_counter() - t1
+        vec = k.as_vector()
+        if not np.isfinite(vec).all():
+            raise AssertionError(f"{path}: the {engine} fit is not finite: {k}")
+        pred = predict_titer_batch(profile, cols, gpus, cpus, env, k, per_node=per_node)
+        avg, worst = prediction_error(profile, k, samples["held_out"], env)
+        every_pred = predict_titer_batch(profile, all_cols, all_gpus, all_cpus, env, k,
+                                         per_node=all_node)
+        fits[engine] = {
+            "params": dict(zip(("k_bwd", "k_sync", "k_opt", "k_opt_off", "k_off",
+                                "k_swap", "k_const"), vec.tolist())),
+            "fit_rmsle": rmsle(pred, true), "fit_s": fit_s,
+            "held_out_err_avg": avg, "held_out_err_max": worst,
+            "predicted_ms": {f"{pl.strategy} {pl.ga_steps}": t * 1e3
+                             for (pl, _, _), t in zip(every, every_pred)}}
+    emit("profile", path=path, arch=cfg.name, profile={"s": profile.s, "b": profile.b,
+         "h": profile.h, "l": profile.l, "P": profile.P}, alloc=[alloc.gpus, alloc.cpus],
+         optimizer="adamw lr 3e-4 (OptConfig()), f32 moments",
+         env={"gpu_mem": env.gpu_mem, "gpu_flops": env.gpu_flops, "B_pcie": env.B_pcie},
+         n_fit=len(samples["fit"]), n_held_out=len(samples["held_out"]), fits=fits,
+         paper_table2_err_limits={"avg": 0.074, "max": 0.104},
+         t_fwd_unit_measured=oracle.t_fwd_unit(), t_fwd_unit_table2_a800=profile.t_fwd_unit,
+         micro={"batch": PROFILE_MICRO[0], "seq": PROFILE_MICRO[1], "t_step_ms":
+                oracle.t_step * 1e3, "loss": micro_loss}, measure_s=measure_s, launches=launches,
+         plain_calls=plain_calls)
+    del oracle
+    free_device_memory()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -1662,6 +1840,7 @@ def main() -> int:
     for arch in ("gpt2-1.5b", "rwkv6-1.6b"):
         by_path[f"{arch} train"] = phase_train_launcher(arch)
     by_path["llama2-7b train offload"] = phase_train_offload(peaks["llama2-7b"])
+    by_path[f"{PROFILE_ARCH} profile"] = phase_profile()
     dist.destroy_process_group()
     # wkv6_fwd's launch count holds every call of its wrapper; the S = 1 ones
     # ran the decode kernel, reported as a kernel of its own.

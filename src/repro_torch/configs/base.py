@@ -88,6 +88,20 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def n_moe_layers(self) -> int:
+        if self.n_experts == 0:
+            return 0
+        return self.n_layers - self.n_dense_layers
+
     def with_(self, **kw: Any) -> "ModelConfig":
         return replace(self, **kw)
 

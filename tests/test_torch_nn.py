@@ -100,3 +100,42 @@ def test_embed_lookup():
 def test_dtype_of():
     for name in ("bfloat16", "float32", "float16"):
         assert str(tnn.dtype_of(name)) == f"torch.{name}"
+
+
+def _rmsnorm_autograd(x, gamma, eps=1e-5):
+    """The same arithmetic as plain ops, differentiated by autograd."""
+    xf = x.float()
+    out = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (out * (1.0 + gamma.float())).to(x.dtype)
+
+
+def test_rmsnorm_backward_gradcheck():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 4, 16, dtype=torch.float64, generator=gen, requires_grad=True)
+    g = (0.3 * torch.randn(16, dtype=torch.float64, generator=gen)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b: tnn.rmsnorm(a, b, 1e-5), (x, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_matches_autograd(dtype):
+    """The hand-written backward against autograd of the same ops: f32 at
+    1e-6 (relative to each gradient's largest element); bf16 within one
+    bf16 step of autograd's bf16 gradient (both round one f32 value)."""
+    gen = torch.Generator().manual_seed(1)
+    x0 = (2 * torch.randn(2, 7, 64, generator=gen)).to(dtype)
+    g0 = (0.5 * torch.randn(64, generator=gen)).to(dtype)
+    dy = torch.randn(2, 7, 64, generator=gen).to(dtype)
+    grads = []
+    for fn in (tnn.rmsnorm, _rmsnorm_autograd):
+        x, g = x0.clone().requires_grad_(), g0.clone().requires_grad_()
+        y = fn(x, g, 1e-5)
+        y.backward(dy)
+        grads.append((y.detach(), x.grad, g.grad))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype == dtype
+        if dtype == torch.float32:
+            scale = want.abs().max()
+            assert ((got - want).abs().max() / scale).item() < 1e-6
+        else:
+            step = torch.finfo(torch.bfloat16).eps * want.float().abs().clamp_min(1e-30)
+            assert bool(((got.float() - want.float()).abs() <= step).all())

@@ -30,7 +30,7 @@ def test_port_imports_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "assert len(mods) >= 15, mods\n"
-        "for sub in ('train', 'data', 'parallel'):\n"
+        "for sub in ('train', 'data', 'parallel', 'core'):\n"
         "    assert any(m.startswith(f'repro_torch.{sub}.') for m in mods), (sub, mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
