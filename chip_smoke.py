@@ -137,6 +137,29 @@ exits nonzero without printing a result:
             finite and positive, a step loss that is not finite, a fit that
             is not finite or a wrong launch count; an out-of-memory error is
             not caught
+  schedule  Rubick's scheduling loop over profile's measurements (none
+            re-measured): gpt2-1.5b's profile with the measured t_fwd_unit,
+            fitted with both engines (RMSLE, held-out errors, beside profile's
+            TABLE2-unit fits); its sensitivity curve on the h100 Env: the best
+            one-card plan (measured by TorchMicroOracle if profile did not),
+            the nine measured plans ranked by predicted T_iter beside their
+            measured ranking (Spearman's rho), best_plan_at_most at 1-8 GPUs
+            (extrapolated beyond one card); job A (orig plan ZeRO-Offload +
+            GC, 1 GPU, 12 CPUs, guaranteed) on a one-GPU node, placed by a
+            static pass (no plan or resource changes) and by Rubick's passes
+            under both pass engines (which must agree); the decision executed
+            on the card by checkpoint and restart (a warm-up step and 3 timed
+            steps under the static plan, a checkpoint under build/, a restore
+            under Rubick's plan that must be bit-equal, its first step and 3
+            timed steps; each plan's T_iter beside its prediction, losses,
+            peak; the reconfiguration's seconds beside restore_cost and the
+            paper's 78 s); then a CalibrationManager observes the eleven
+            measurements and polls, and a refit is propagated into a Rubick
+            pass over the running job (the gate's verdict) and an admission
+            pass.  Flash launches counted over the phase (0 plain calls).
+            Fails on a time, loss or fit that is not finite, a restore that
+            is not bit-equal, the engines disagreeing, a plan needing more
+            than one card or a wrong launch count
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1703,20 +1726,61 @@ def flash_launches(cfg, plan, steps: int) -> dict[str, int]:
     return {"flash_attention_fwd": fwd * (2 if plan.gc else 1), "flash_attention_bwd": fwd}
 
 
-def phase_profile() -> dict[str, int]:
+def fit_engines(path: str, profile, samples: dict, env) -> tuple[dict, dict]:
+    """The performance model fitted to samples["fit"] with both engines:
+    ({engine: params, fit RMSLE, fit seconds, held-out (avg, max) relative
+    error over samples["held_out"], predicted ms of every sample}, {engine:
+    FitParams}).  Raises on a fit that is not finite."""
+    from repro_torch.core.perfmodel import (fit, predict_titer_batch, prediction_error, rmsle,
+                                            sample_arrays)
+
+    cols, gpus, cpus, per_node, true = sample_arrays(samples["fit"], env)
+    every = samples["fit"] + samples["held_out"]
+    all_cols, all_gpus, all_cpus, all_node, _ = sample_arrays(every, env)
+    fits, params = {}, {}
+    for engine in ("batched", "scalar"):
+        t1 = time.perf_counter()
+        k = params[engine] = fit(profile, samples["fit"], env=env, engine=engine)
+        fit_s = time.perf_counter() - t1
+        vec = k.as_vector()
+        if not np.isfinite(vec).all():
+            raise AssertionError(f"{path}: the {engine} fit is not finite: {k}")
+        pred = predict_titer_batch(profile, cols, gpus, cpus, env, k, per_node=per_node)
+        avg, worst = prediction_error(profile, k, samples["held_out"], env)
+        every_pred = predict_titer_batch(profile, all_cols, all_gpus, all_cpus, env, k,
+                                         per_node=all_node)
+        fits[engine] = {
+            "params": fit_params(k), "fit_rmsle": rmsle(pred, true), "fit_s": fit_s,
+            "held_out_err_avg": avg, "held_out_err_max": worst,
+            "predicted_ms": {plan_label(pl): t * 1e3
+                             for (pl, _, _), t in zip(every, every_pred)}}
+    return fits, params
+
+
+def fit_params(k) -> dict[str, float]:
+    return dict(zip(("k_bwd", "k_sync", "k_opt", "k_opt_off", "k_off", "k_swap", "k_const"),
+                    k.as_vector().tolist()))
+
+
+def plan_label(plan) -> str:
+    return f"{plan.strategy} {plan.ga_steps}"
+
+
+def phase_profile() -> dict:
     """Rubick's profiling -> fit -> predict loop on the card: TorchMicroOracle
     times gpt2-1.5b's one-card plans at full width (each plan: a warm-up step,
     then the median of 3 wall-clock steps), the performance model is fitted to
     the fit set with both engines, and the held-out plans are predicted (the
     paper's Table 2 metric).  Fails only on a time that is not finite and
     positive, a step loss that is not finite, a fit that is not finite, or a
-    wrong launch count; the errors themselves are findings."""
+    wrong launch count; the errors themselves are findings.  Returns what it
+    measured for the schedule phase: the flash launches, the samples by role,
+    the fits and the oracle."""
     from repro_torch import configs
     from repro_torch.core import memory
     from repro_torch.core.oracle import TorchMicroOracle
     from repro_torch.core.paper_models import TABLE2
-    from repro_torch.core.perfmodel import (Alloc, env_for_gpu, fit, predict_titer_batch,
-                                            prediction_error, rmsle, sample_arrays)
+    from repro_torch.core.perfmodel import Alloc, env_for_gpu
     from repro_torch.parallel.plan import ExecutionPlan
 
     path = f"{PROFILE_ARCH} profile"
@@ -1769,28 +1833,7 @@ def phase_profile() -> dict[str, int]:
 
     # TABLE2's t_fwd_unit is derived from the A800's bf16 peak
     # (paper_models.py); the unit measured here is printed beside it.
-    cols, gpus, cpus, per_node, true = sample_arrays(samples["fit"], env)
-    every = samples["fit"] + samples["held_out"]
-    all_cols, all_gpus, all_cpus, all_node, _ = sample_arrays(every, env)
-    fits = {}
-    for engine in ("batched", "scalar"):
-        t1 = time.perf_counter()
-        k = fit(profile, samples["fit"], env=env, engine=engine)
-        fit_s = time.perf_counter() - t1
-        vec = k.as_vector()
-        if not np.isfinite(vec).all():
-            raise AssertionError(f"{path}: the {engine} fit is not finite: {k}")
-        pred = predict_titer_batch(profile, cols, gpus, cpus, env, k, per_node=per_node)
-        avg, worst = prediction_error(profile, k, samples["held_out"], env)
-        every_pred = predict_titer_batch(profile, all_cols, all_gpus, all_cpus, env, k,
-                                         per_node=all_node)
-        fits[engine] = {
-            "params": dict(zip(("k_bwd", "k_sync", "k_opt", "k_opt_off", "k_off",
-                                "k_swap", "k_const"), vec.tolist())),
-            "fit_rmsle": rmsle(pred, true), "fit_s": fit_s,
-            "held_out_err_avg": avg, "held_out_err_max": worst,
-            "predicted_ms": {f"{pl.strategy} {pl.ga_steps}": t * 1e3
-                             for (pl, _, _), t in zip(every, every_pred)}}
+    fits, _ = fit_engines(path, profile, samples, env)
     emit("profile", path=path, arch=cfg.name, profile={"s": profile.s, "b": profile.b,
          "h": profile.h, "l": profile.l, "P": profile.P}, alloc=[alloc.gpus, alloc.cpus],
          optimizer="adamw lr 3e-4 (OptConfig()), f32 moments",
@@ -1801,8 +1844,234 @@ def phase_profile() -> dict[str, int]:
          micro={"batch": PROFILE_MICRO[0], "seq": PROFILE_MICRO[1], "t_step_ms":
                 oracle.t_step * 1e3, "loss": micro_loss}, measure_s=measure_s, launches=launches,
          plain_calls=plain_calls)
-    del oracle
     free_device_memory()
+    return {"launches": launches, "samples": samples, "fits": fits, "oracle": oracle}
+
+
+def spearman(a, b) -> float:
+    """Spearman's rank correlation; values equal to 1e-12 (seconds) share
+    their mean rank (the model prices GA at 0, so GA plans tie)."""
+    def ranks(x):
+        x = np.round(np.asarray(x, float), 12)
+        r = np.empty(len(x))
+        r[np.argsort(x, kind="stable")] = np.arange(len(x))
+        for v in np.unique(x):
+            r[x == v] = r[x == v].mean()
+        return r
+
+    return float(np.corrcoef(ranks(a), ranks(b))[0, 1])
+
+
+# The user's static, memory-safe choice for job A, and the steps timed under
+# each plan of the executed reconfiguration.
+SCHEDULE_STATIC = {"zero_stage": 1, "offload": True, "gc": True}
+SCHEDULE_STEPS = 3
+CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "schedule_ckpt"
+
+
+def phase_schedule(prof: dict) -> dict[str, int]:
+    """Rubick's scheduling loop on the card, fed by the profile phase (which
+    it does not re-measure): the performance model fitted under the measured
+    t_fwd_unit, its sensitivity curve's one-card ranking against the measured
+    one, a static and a Rubick scheduler pass for job A on a one-GPU node (both
+    pass engines), the Rubick decision executed by checkpoint and restart
+    (train under the static plan, save, restore bit for bit under Rubick's,
+    train on), then the eleven measurements observed by a CalibrationManager
+    and polled; a refit is propagated into a Rubick pass over the running job
+    and into an admission pass.  Fails on a time, loss or fit that is not
+    finite, a restore that is not bit-equal, the two pass engines disagreeing,
+    a plan that needs more than one device, or a wrong launch count; every
+    prediction error and ranking is a finding."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.calibration import CalibrationManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import memory
+    from repro_torch.core.cluster import Cluster, Job, JobState, SchedEvents
+    from repro_torch.core.oracle import build_train_step, reconfigure, run_steps
+    from repro_torch.core.paper_models import TABLE2
+    from repro_torch.core.perfmodel import Alloc, env_for_gpu, predict_titer, prediction_error
+    from repro_torch.core.scheduler import RubickScheduler, SchedulerConfig
+    from repro_torch.core.sensitivity import get_curve
+    from repro_torch.parallel.plan import ExecutionPlan
+
+    path = f"{PROFILE_ARCH} schedule"
+    cfg = configs.get(PROFILE_ARCH)
+    env = env_for_gpu("h100")
+    alloc = Alloc(1, 12)
+    oracle = prof["oracle"]
+    card = dataclasses.replace(TABLE2[PROFILE_ARCH], t_fwd_unit=oracle.t_fwd_unit())
+    free_device_memory()
+    counters = kernel_counters()
+    reset_counts(counters)
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+    def count(plan, steps):
+        for name, n in flash_launches(cfg, plan, steps).items():
+            want[name] += n
+
+    # 1. The card's profile fitted with both engines; the batched fit is used.
+    t0 = time.perf_counter()
+    fits, params = fit_engines(path, card, prof["samples"], env)
+    k = params["batched"]
+
+    # 2. Its curve: the best one-card plan, and the measured plans ranked.
+    measured = prof["samples"]["fit"] + prof["samples"]["held_out"]
+    curve = get_curve(card, k, env, max_gpus=8)
+    best = curve.best_plan(1, 12)
+    if best.plan is None:
+        raise AssertionError(f"{path}: the curve has no feasible one-card plan")
+    pred = [predict_titer(card, plan, a, env, k) for plan, a, _ in measured]
+    meas = [t for _, _, t in measured]
+    fastest = measured[int(np.argmin(meas))][0]
+    ranking = {"plans": [plan_label(plan) for plan, _, _ in measured],
+               "measured_ms": [t * 1e3 for t in meas], "predicted_ms": [t * 1e3 for t in pred],
+               "measured_order": [plan_label(measured[i][0]) for i in np.argsort(meas)],
+               "predicted_order": [plan_label(measured[i][0]) for i in np.argsort(pred)],
+               "spearman_rho": spearman(pred, meas),
+               "best_is_fastest_measured": best.plan == fastest}
+    best_row = {"plan": dataclasses.asdict(best.plan), "label": plan_label(best.plan),
+                "predicted_ms": card.b / best.throughput * 1e3}
+    if all(best.plan != plan for plan, _, _ in measured):
+        t = oracle.measure(card, best.plan, alloc, env=env)
+        loss = oracle.last["loss"]
+        if not (np.isfinite(t) and t > 0 and np.isfinite(loss).all()):
+            raise AssertionError(f"{path}: {best.plan.strategy} measured {t} s, losses {loss}")
+        count(best.plan, 1 + oracle.steps)
+        best_row.update(measured_ms=t * 1e3, loss=loss,
+                        peak_device_bytes=oracle.last["peak_device_bytes"])
+    at_most = {g: curve.best_plan_at_most(g) for g in (1, 2, 4, 8)}
+    extrapolated = {g: {"plan": plan_label(pt.plan) if pt.plan else None, "gpus": pt.gpus,
+                        "samples_per_s": pt.throughput} for g, pt in at_most.items()}
+
+    # 3. Two scheduler passes for job A on a one-GPU node of the card.
+    static = ExecutionPlan(**SCHEDULE_STATIC)
+    job = Job(name="A", profile=card, submit=0.0, target_iters=1000.0, req_gpus=1, req_cpus=12,
+              orig_plan=static, guaranteed=True)
+
+    def one_pass(sched_cfg, fitted=k):
+        cluster = Cluster(n_nodes=1, gpus_per_node=1, cpus_per_node=12)
+        js = JobState(job=job, fitted=fitted)
+        sched = RubickScheduler(env, sched_cfg)
+        sched.schedule([js], cluster, 0.0)
+        if js.status != "running" or js.plan is None:
+            raise AssertionError(f"{path}: the pass left job A {js.status}")
+        if js.plan.n_gpus > 1 or js.total_gpus > 1:
+            raise AssertionError(f"{path}: the pass picked {js.plan} on {js.total_gpus} GPUs; "
+                                 f"multi-card plans are ROADMAP A14b")
+        return js, sched, cluster
+
+    def placed(js):
+        return {"plan": plan_label(js.plan), "alloc": [js.alloc.gpus, js.alloc.cpus],
+                "placement": {str(n): list(v) for n, v in js.placement.items()},
+                "min_res": list(js.min_res), "baseline_perf": js.baseline_perf}
+
+    js_static, _, _ = one_pass(SchedulerConfig(reconfigure_plans=False,
+                                               reallocate_resources=False))
+    passes = {"static": placed(js_static)}
+    rubick = {}
+    for engine in ("incremental", "full"):
+        rubick[engine] = one_pass(SchedulerConfig(pass_engine=engine))
+        passes[engine] = placed(rubick[engine][0])
+    if passes["incremental"] != passes["full"]:
+        raise AssertionError(f"{path}: the pass engines disagree: {passes}")
+    js, sched, cluster = rubick["incremental"]
+    if js_static.plan != static:
+        raise AssertionError(f"{path}: the static pass placed A under {js_static.plan}")
+    new_plan = js.plan
+
+    # 4. The decision executed: checkpoint under the static plan, restart under Rubick's.
+    shape = ShapeConfig("schedule", card.s, card.b, "train")
+    CHECKPOINT_DIR.mkdir(parents=True, exist_ok=True)
+    disk = shutil.disk_usage(CHECKPOINT_DIR)
+    executed = {"disk_free_bytes": disk.free}
+    emit("schedule_disk", path=path, dir=str(CHECKPOINT_DIR), free_bytes=disk.free,
+         total_bytes=disk.total)
+
+    def train(run, label):
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = run_steps(run, batch, SCHEDULE_STEPS, warmup=0)
+        if not (np.isfinite(times).all() and np.isfinite(losses).all()):
+            raise AssertionError(f"{path}: {label} steps took {times} s, losses {losses}")
+        return {"plan": plan_label(run.plan), "t_iter_ms": float(np.median(times)) * 1e3,
+                "step_ms_all": [t * 1e3 for t in times], "loss": losses,
+                "predicted_ms": predict_titer(card, run.plan, alloc, env, k) * 1e3,
+                "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+    try:
+        run = build_train_step(cfg, static, shape, "cuda", seed=SEED)
+        batch = run.model.dummy_batch(shape)
+        _, first_loss = run_steps(run, batch, 1, warmup=0)           # warm-up step
+        executed["static"] = train(run, "static")
+        executed["static"]["warmup_loss"] = first_loss
+        run, info = reconfigure(run, new_plan, shape, CHECKPOINT_DIR, step=1 + SCHEDULE_STEPS,
+                                seed=SEED)
+        if info["differ"]:
+            raise AssertionError(f"{path}: the restore under {new_plan.strategy} differs from "
+                                 f"the saved state in {info['differ'][:8]}")
+        first_s, first_loss = run_steps(run, batch, 1, warmup=0)    # first step after restart
+        executed["rubick"] = train(run, "rubick")
+        executed["rubick"]["warmup_loss"] = first_loss
+        count(static, 1 + SCHEDULE_STEPS)
+        count(new_plan, 1 + SCHEDULE_STEPS)
+        run.release()
+        del run, batch
+    finally:
+        shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    executed.update(
+        same_plan=new_plan == static, checkpoint_bytes=info["checkpoint_bytes"],
+        save_s=info["save_s"], restore_s=info["restore_s"], first_step_s=first_s[0],
+        reconfig_s=info["save_s"] + info["restore_s"] + first_s[0],
+        restore_cost_model_s=memory.restore_cost(card),
+        restore_cost_of_checkpoint_s=memory.restore_cost(nbytes=info["checkpoint_bytes"]),
+        reconfig_cost_s_paper_a800=SchedulerConfig().reconfig_cost_s, restore_bit_equal=True)
+    free_device_memory()
+
+    # 5. Observe the eleven measurements and poll: a refit is propagated.
+    mgr = CalibrationManager(env=env)
+    mgr.ensure(card, k)
+    stream = measured + [(static, alloc, executed["static"]["t_iter_ms"] / 1e3),
+                         (new_plan, alloc, executed["rubick"]["t_iter_ms"] / 1e3)]
+    for i, (plan, a, t) in enumerate(stream, start=1):
+        mgr.observe(card, k, plan, a, env, t, now=60.0 * i)
+    now = 60.0 * (len(stream) + 1)
+    calibration = {"n_observations": len(stream), "window_rmsle_before": mgr.window_error(card),
+                   "threshold": mgr.detector.cfg.threshold,
+                   "min_observations": mgr.detector.cfg.min_observations}
+    refits = mgr.poll(now)
+    calibration["refit"] = bool(refits)
+    if refits:
+        r = refits[0]
+        if not np.isfinite(r.new.as_vector()).all():
+            raise AssertionError(f"{path}: the refit is not finite: {r.new}")
+        avg, worst = prediction_error(card, r.new, prof["samples"]["held_out"], env)
+        js.run_time = sum(executed["rubick"]["step_ms_all"]) / 1e3 + executed["reconfig_s"] \
+            + sum(executed["static"]["step_ms_all"]) / 1e3
+        old_plan = js.plan
+        js.fitted, js.min_res, js.baseline_perf = r.new, None, 0.0
+        gate = sched._reconfig_gate(js)
+        sched.schedule([js], cluster, now, events=SchedEvents(refit=[(js, r.old)]))
+        fresh, _, _ = one_pass(SchedulerConfig(), r.new)
+        calibration.update(
+            version=r.version, params=fit_params(r.new), rmsle_before=r.rmsle_before,
+            rmsle_after=r.rmsle_after,
+            held_out_err_avg=avg, held_out_err_max=worst,
+            running_pass={"run_time_s": js.run_time, "gate_open": gate,
+                          "plan_before": plan_label(old_plan), "plan_after": plan_label(js.plan),
+                          "n_reconfig": js.n_reconfig, "min_res": list(js.min_res)},
+            admission_plan=plan_label(fresh.plan))
+    phase_s = time.perf_counter() - t0
+    launches, plain_calls = read_counts(counters)
+    check_launches(path, cfg, 0, launches, plain_calls, want)
+    emit("schedule", path=path, arch=cfg.name, env="h100", alloc=[alloc.gpus, alloc.cpus],
+         t_fwd_unit_measured=card.t_fwd_unit, t_fwd_unit_table2_a800=TABLE2[PROFILE_ARCH]
+         .t_fwd_unit, fits_measured_unit=fits, fits_table2_unit=prof["fits"],
+         best_plan_1gpu=best_row, ranking=ranking,
+         best_plan_at_most_extrapolated_beyond_one_card=extrapolated, passes=passes,
+         engines_agree=True, executed=executed, calibration=calibration, seconds=phase_s,
+         launches=launches, plain_calls=plain_calls)
     return launches
 
 
@@ -1840,7 +2109,9 @@ def main() -> int:
     for arch in ("gpt2-1.5b", "rwkv6-1.6b"):
         by_path[f"{arch} train"] = phase_train_launcher(arch)
     by_path["llama2-7b train offload"] = phase_train_offload(peaks["llama2-7b"])
-    by_path[f"{PROFILE_ARCH} profile"] = phase_profile()
+    prof = phase_profile()
+    by_path[f"{PROFILE_ARCH} profile"] = prof["launches"]
+    by_path[f"{PROFILE_ARCH} schedule"] = phase_schedule(prof)
     dist.destroy_process_group()
     # wkv6_fwd's launch count holds every call of its wrapper; the S = 1 ones
     # ran the decode kernel, reported as a kernel of its own.

@@ -1,17 +1,19 @@
 """Throughput oracles: ``measure(profile, plan, alloc) -> T_iter`` seconds.
 
 A copy of ``repro.core.oracle``'s analytic half (``true_params``,
-``AnalyticOracle``, ``profiling_samples``, ``profiling_requests``), held
-to the reference's outputs by ``tests/test_torch_perfmodel.py``: an
-oracle with the performance model's own equations over hidden per-model
-parameters, plan-family wiggles and measurement noise, standing in for
-the paper's 64-GPU A800 cluster.  The reference's ``true_curve`` needs
-its sensitivity curves, which the port does not have yet (ROADMAP A13b).
+``AnalyticOracle`` with its drift and batched methods, ``true_curve``,
+``profiling_samples``, ``profiling_requests``), held to the reference's
+outputs by ``tests/test_torch_perfmodel.py`` and
+``tests/test_torch_sched.py``: an oracle with the performance model's own
+equations over hidden per-model parameters, plan-family wiggles and
+measurement noise, standing in for the paper's 64-GPU A800 cluster.
 
 ``TorchMicroOracle`` takes the place of the reference's
 ``JaxMicroOracle``: it times real train steps of the port on one device
 (the card, or the CPU when asked), so the paper's profiling → fit →
-predict loop runs against measured executions.
+predict → schedule loop runs against measured executions.
+``build_train_step`` is the step it times, which ``chip_smoke.py``'s
+``schedule`` phase also runs to execute a scheduler's plan change.
 """
 
 from __future__ import annotations
@@ -21,14 +23,17 @@ import hashlib
 import math
 import time
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core import memory
-from repro_torch.core.perfmodel import (GPU_TYPES, Alloc, Env, FitParams, ModelProfile,
-                                        env_for_gpu, predict_titer)
+from repro_torch.core.perfmodel import (_BOUNDS, GPU_TYPES, Alloc, Env, FitParams,
+                                        ModelProfile, env_for_gpu, predict_titer,
+                                        predict_titer_batch)
 from repro_torch.parallel.plan import ExecutionPlan
+from repro_torch.parallel.plan_table import PlanTable
 
 
 def _unit_hash(*keys) -> float:
@@ -56,26 +61,50 @@ def true_params(model_name: str) -> FitParams:
 class AnalyticOracle:
     """measure(profile, plan, alloc) -> T_iter seconds (or inf if OOM).
 
-    The reference's drift over simulated time and its batched
-    ``measure_batch``/``throughput`` methods serve its simulator, which the
-    port does not have yet (ROADMAP A13b); they come over with it."""
+    ``drifting=True`` slowly perturbs the hidden true params over
+    SIMULATED time (``now``): each of the 7 params follows its own
+    deterministic log-space direction, saturating at
+    ``exp(±drift_scale)`` with time constant ``drift_tau`` — so a model
+    fitted from the t=0 profile grows stale, and online calibration has
+    something real to catch.  The drifted truth is clamped to
+    ``perfmodel._BOUNDS`` so a refit can always reach it (tanh
+    saturation alone is not enough: a hash draw near a bound edge with
+    an outward drift direction would escape)."""
     env: Env = None
     noise: float = 0.01
     wiggle: float = 0.06          # plan-family efficiency deviation
+    drifting: bool = False
+    drift_scale: float = 0.6      # log-space drift amplitude at saturation
+    drift_tau: float = 43200.0    # drift time constant, seconds (12 h)
 
     def __post_init__(self):
         self.env = self.env or Env()
+
+    def true_params_at(self, model_name: str, now: float = 0.0) -> FitParams:
+        """Hidden truth at simulated time ``now`` (= ``true_params`` at
+        t=0 or when drifting is off)."""
+        k = true_params(model_name)
+        if not self.drifting or now <= 0.0:
+            return k
+        v = k.as_vector()
+        dirs = np.array([2.0 * _unit_hash(model_name, "drift", i) - 1.0
+                         for i in range(v.size)])
+        v = v * np.exp(self.drift_scale * dirs * math.tanh(now /
+                                                           self.drift_tau))
+        v = np.clip(v, [b[0] for b in _BOUNDS], [b[1] for b in _BOUNDS])
+        return FitParams.from_vector(v)
 
     def measure(self, profile: ModelProfile, plan: ExecutionPlan,
                 alloc: Alloc, seed: int = 0,
                 env: Env | None = None, now: float = 0.0) -> float:
         """``env`` overrides the oracle's default environment (the
-        per-GPU-type Env of the nodes hosting the job).  ``now`` is
-        accepted for the interface's sake: this oracle does not drift."""
+        per-GPU-type Env of the nodes hosting the job).  ``now`` selects
+        the drifted truth on drifting oracles (ignored otherwise)."""
         env = env or self.env
         if not memory.feasible(profile, plan, alloc, env):
             return float("inf")
-        t = predict_titer(profile, plan, alloc, env, true_params(profile.name))
+        k = self.true_params_at(profile.name, now)
+        t = predict_titer(profile, plan, alloc, env, k)
         if not math.isfinite(t):
             return float("inf")
         # plan-family wiggle: the truth is not exactly the model's form
@@ -85,6 +114,51 @@ class AnalyticOracle:
             int(_unit_hash(profile.name, plan, alloc, seed) * 2**31))
         noise = float(rng.lognormal(0.0, self.noise))
         return t * w * noise
+
+    def throughput(self, profile, plan, alloc, seed: int = 0,
+                   env: Env | None = None, now: float = 0.0) -> float:
+        t = self.measure(profile, plan, alloc, seed, env=env, now=now)
+        return profile.b / t if math.isfinite(t) and t > 0 else 0.0
+
+    # ------------------------------------------------------------------
+    def measure_batch(self, profile: ModelProfile, table: PlanTable,
+                      gpus: int, cpus: int, seed: int = 0) -> np.ndarray:
+        """T_iter for every table row at one allocation (inf where OOM) —
+        vectorized core prediction; the per-row wiggle/noise hashing stays
+        scalar (cheap) so values match ``measure`` row-for-row."""
+        g = np.asarray([gpus])
+        c = np.asarray([float(cpus)])
+        cols = table.cols.expand()
+        feas = memory.feasible_mask(profile, cols, g, c, self.env)[:, 0]
+        t = predict_titer_batch(profile, cols, g, c, self.env,
+                                true_params(profile.name))[:, 0]
+        out = np.full(len(table), np.inf)
+        alloc = Alloc(gpus, cpus)
+        for i in np.flatnonzero(feas & np.isfinite(t)):
+            w = 1.0 + self.wiggle * (2 * _unit_hash(
+                profile.name, table.strategies[i], alloc.gpus) - 1)
+            rng = np.random.default_rng(int(_unit_hash(
+                profile.name, table.plans[i], alloc, seed) * 2**31))
+            out[i] = t[i] * w * float(rng.lognormal(0.0, self.noise))
+        return out
+
+    def throughput_batch(self, profile: ModelProfile, table: PlanTable,
+                         gpus: int, cpus: int, seed: int = 0) -> np.ndarray:
+        t = self.measure_batch(profile, table, gpus, cpus, seed)
+        ok = np.isfinite(t) & (t > 0)
+        return np.where(ok, profile.b / np.where(ok, t, 1.0), 0.0)
+
+
+def true_curve(profile: ModelProfile, env: Env | None = None,
+               max_gpus: int = 64, cpus_per_gpu: int = 12, max_ga: int = 8):
+    """The GROUND-TRUTH sensitivity curve (hidden params, no wiggle/noise)
+    — shares the process-wide CurveCache with the scheduler stack, so
+    comparisons of predicted and true envelopes enumerate the plan space
+    once."""
+    from repro_torch.core.sensitivity import get_curve
+    return get_curve(profile, true_params(profile.name), env or Env(),
+                     max_gpus=max_gpus, cpus_per_gpu=cpus_per_gpu,
+                     max_ga=max_ga)
 
 
 PROFILE_SET = "paper Sec 4.3: ≥7 points, ≥3 with ZeRO-Offload"
@@ -258,50 +332,153 @@ class TorchMicroOracle:
 
     def _time(self, plan: ExecutionPlan, shape) -> float:
         """The median wall seconds of ``self.steps`` steps of ``plan`` at
-        ``shape``, after one untimed step.  Plans with ``offload`` or
-        ``zero_stage == 3`` run through ``compile_train_step`` on a
-        one-device mesh (reusing an initialised process group), every other
-        plan through ``make_train_step``, where GA acts; GC acts through
-        the model's ``remat="full"``."""
-        from repro_torch.models import ModelOpts, build
-        from repro_torch.train.optimizer import OptConfig, opt_init
-        from repro_torch.train.step import compile_train_step, make_train_step
-
+        ``shape`` (``build_train_step``, ``run_steps``), after one untimed
+        step; every tensor the run made is freed before it returns."""
         dev = self.device
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        model = build(self.cfg, device=dev, seed=self.seed,
-                      opts=ModelOpts(remat="full" if plan.gc else "none", loss_chunk=0))
-        optcfg = OptConfig()
-        if plan.offload or plan.zero_stage == 3:
-            from repro_torch.launch.mesh import single_device_mesh
-
-            step, _, _, _, params, opt_state = compile_train_step(
-                model, plan, single_device_mesh(dev), optcfg, model.input_specs(shape))
-        else:
-            params = model.init()
-            opt_state = opt_init(params, optcfg)
-            step = make_train_step(model, plan, optcfg)
-        batch = model.dummy_batch(shape)
-        params, opt_state, _ = step(params, opt_state, batch)
-        _sync(dev)
-        times, losses = [], []
-        for _ in range(self.steps):
-            t0 = time.perf_counter()
-            params, opt_state, metrics = step(params, opt_state, batch)
-            _sync(dev)
-            times.append(time.perf_counter() - t0)
-            losses.append(metrics["loss"])
+        run = build_train_step(self.cfg, plan, shape, dev, seed=self.seed)
+        times, losses = run_steps(run, run.model.dummy_batch(shape), self.steps)
         self.last = {
             "step_s": times,
-            "loss": [float(x) for x in losses],
+            "loss": losses,
             "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None),
-            "pinned_host_bytes": _pinned_bytes(opt_state)}
-        del model, params, opt_state, step, batch
+            "pinned_host_bytes": _pinned_bytes(run.opt_state)}
+        run.release()
+        return float(np.median(times))
+
+
+@dataclass
+class TrainRun:
+    """One model laid out for one plan on one device, with its train step
+    (``build_train_step``).  ``layout`` is the ``compile_train_step``
+    layout, or None for a ``make_train_step`` run."""
+    model: Any
+    plan: ExecutionPlan
+    step: Any
+    params: Any
+    opt_state: dict | None
+
+    @property
+    def layout(self):
+        return getattr(self.step, "layout", None)
+
+    def whole_state(self) -> dict[str, Any]:
+        """Every parameter (``params/<name>``) and moment (``m/<name>``,
+        ``v/<name>``) whole, in the reference's layout, and the step count
+        (``count``): the state a checkpoint holds."""
+        lay = self.layout
+        if lay is None:
+            params, opt = dict(self.params.named_parameters()), self.opt_state
+        else:
+            params, opt = lay.full_params(self.params), lay.full_opt(self.opt_state)
+        out = {f"params/{n}": t.detach() for n, t in params.items()}
+        for k in ("m", "v"):
+            out.update((f"{k}/{n}", t) for n, t in opt.get(k, {}).items())
+        out["count"] = int(opt["count"])
+        return out
+
+    def release(self) -> None:
+        """Drop the model, step, params and optimizer state, and return the
+        memory they held (the device's cache, pinned host blocks too)."""
+        dev = self.model.device
+        self.model = self.step = self.params = self.opt_state = None
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
             _release_pinned_cache()
-        return float(np.median(times))
+
+
+def build_train_step(cfg, plan: ExecutionPlan, shape, device, seed: int = 0) -> TrainRun:
+    """A fresh model of ``cfg`` (weights from ``seed``) laid out for
+    ``plan`` at ``shape`` on one device, with its optimizer state
+    (``OptConfig()``).  Plans with ``offload`` or ``zero_stage == 3`` run
+    through ``compile_train_step`` on a one-device mesh (reusing an
+    initialised process group), every other plan through
+    ``make_train_step``, where GA acts; GC acts through the model's
+    ``remat="full"``.  ``TorchMicroOracle`` times this step, and
+    ``chip_smoke.py``'s ``schedule`` phase runs it under a scheduler's
+    plans."""
+    from repro_torch.models import ModelOpts, build
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.step import compile_train_step, make_train_step
+
+    model = build(cfg, device=device, seed=seed,
+                  opts=ModelOpts(remat="full" if plan.gc else "none", loss_chunk=0))
+    optcfg = OptConfig()
+    if plan.offload or plan.zero_stage == 3:
+        from repro_torch.launch.mesh import single_device_mesh
+
+        step, _, _, _, params, opt_state = compile_train_step(
+            model, plan, single_device_mesh(model.device), optcfg, model.input_specs(shape))
+    else:
+        params = model.init()
+        opt_state = opt_init(params, optcfg)
+        step = make_train_step(model, plan, optcfg)
+    return TrainRun(model, plan, step, params, opt_state)
+
+
+def run_steps(run: TrainRun, batch: dict, steps: int,
+              warmup: int = 1) -> tuple[list[float], list[float]]:
+    """``warmup`` untimed steps, then ``steps`` steps each timed by the host
+    clock around a step that ends in a device synchronize: (seconds,
+    losses) of the timed ones."""
+    dev = run.model.device
+    for _ in range(warmup):
+        run.params, run.opt_state, _ = run.step(run.params, run.opt_state, batch)
+    _sync(dev)
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        run.params, run.opt_state, metrics = run.step(run.params, run.opt_state, batch)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    return times, [float(x) for x in losses]
+
+
+def reconfigure(run: TrainRun, plan: ExecutionPlan, shape, directory, step: int,
+                seed: int = 0) -> tuple[TrainRun, dict]:
+    """Rubick's reconfiguration mechanism (paper Sec 5.2, checkpoint and
+    restart): save ``run`` as checkpoint ``step`` into ``directory``
+    (``CheckpointManager``, blocking), release it (``run`` is left empty),
+    build ``plan``'s run (``build_train_step``) and restore the checkpoint
+    into it.  Returns the new run and ``{"save_s", "restore_s",
+    "checkpoint_bytes", "differ"}``: ``restore_s`` covers the build and the
+    restore, and ``differ`` names every parameter and moment (and the step
+    count) whose restored value is not bit-equal to the one saved.  The
+    saved state is held on the host for that check (a copy of the
+    parameters and of moments on the device; host moments by reference)."""
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    dev = run.model.device
+    cfg = run.model.cfg
+    saved = {k: (v.to("cpu", copy=True) if isinstance(v, torch.Tensor) and v.device.type != "cpu"
+                 else v) for k, v in run.whole_state().items()}
+    ckpt = CheckpointManager(directory, keep_last=1, async_save=False)
+    t0 = time.perf_counter()
+    target = ckpt.save(step, run.params, run.opt_state, block=True, layout=run.layout)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in target.iterdir())
+    run.release()
+    t0 = time.perf_counter()
+    new = build_train_step(cfg, plan, shape, dev, seed=seed)
+    ckpt.restore(new.params, new.opt_state, step=step, layout=new.layout)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    got = new.whole_state()
+    differ = sorted(k for k in saved.keys() | got.keys()
+                    if k not in saved or k not in got or not _bit_equal(saved[k], got[k]))
+    return new, {"save_s": save_s, "restore_s": restore_s, "checkpoint_bytes": nbytes,
+                 "differ": differ}
+
+
+def _bit_equal(a, b) -> bool:
+    """Same dtype, shape and bytes (signed zeros and NaNs told apart)."""
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))

@@ -30,8 +30,11 @@ def test_port_imports_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "assert len(mods) >= 15, mods\n"
-        "for sub in ('train', 'data', 'parallel', 'core'):\n"
+        "for sub in ('train', 'data', 'parallel', 'core', 'calibration'):\n"
         "    assert any(m.startswith(f'repro_torch.{sub}.') for m in mods), (sub, mods)\n"
+        "for m in ('analysis', 'core.cluster', 'core.sensitivity', 'core.scheduler',\n"
+        "          'core.trace'):\n"
+        "    assert f'repro_torch.{m}' in mods, (m, mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
