@@ -160,6 +160,24 @@ exits nonzero without printing a result:
             Fails on a time, loss or fit that is not finite, a restore that
             is not bit-equal, the engines disagreeing, a plan needing more
             than one card or a wrong launch count
+  simulate  Rubick's cluster simulator over T_iter measured on the card: a
+            fresh TorchMicroOracle behind a memo (each (plan, alloc) timed
+            once, on its first ask, for every run) times the plans the
+            schedulers pick; four gpt2-1.5b jobs like schedule's job A,
+            submitted 300 s apart, 3,000 iterations each, on its one-GPU
+            node, with schedule's fit in the fit cache and its measured plan
+            change as the reconfiguration cost; rubick, rubick-n, synergy,
+            sia and antman (repro_torch.core.baselines) under the event and
+            the discrete engine, Rubick's event run sanitized and recorded
+            (its JSONL under build/simulate, validated by
+            repro_torch.obs.report).  One line a scheduler: avg and p99 JCT,
+            makespan, reconfigurations, guarantee violations, each job's plan
+            and measured T_iter; then the plans measured fresh and their card
+            seconds.  Flash launches counted over the phase (0 plain calls).
+            Fails on a job left unfinished, a time that is not finite, the
+            engines' avg JCT or makespan more than 1% apart, a sanitizer
+            violation, a trace that does not validate, a measure asked for a
+            multi-card plan or a wrong launch count
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1869,7 +1887,7 @@ SCHEDULE_STEPS = 3
 CHECKPOINT_DIR = Path(__file__).resolve().parent / "build" / "schedule_ckpt"
 
 
-def phase_schedule(prof: dict) -> dict[str, int]:
+def phase_schedule(prof: dict) -> dict:
     """Rubick's scheduling loop on the card, fed by the profile phase (which
     it does not re-measure): the performance model fitted under the measured
     t_fwd_unit, its sensitivity curve's one-card ranking against the measured
@@ -1881,7 +1899,10 @@ def phase_schedule(prof: dict) -> dict[str, int]:
     and into an admission pass.  Fails on a time, loss or fit that is not
     finite, a restore that is not bit-equal, the two pass engines disagreeing,
     a plan that needs more than one device, or a wrong launch count; every
-    prediction error and ranking is a finding."""
+    prediction error and ranking is a finding.  Returns the launches, the
+    card's profile (TABLE2's under the measured t_fwd_unit), its batched fit
+    and the plan change's measured seconds (save + restore + first step),
+    for the simulate phase."""
     import dataclasses
     import shutil
 
@@ -2072,6 +2093,196 @@ def phase_schedule(prof: dict) -> dict[str, int]:
          best_plan_at_most_extrapolated_beyond_one_card=extrapolated, passes=passes,
          engines_agree=True, executed=executed, calibration=calibration, seconds=phase_s,
          launches=launches, plain_calls=plain_calls)
+    return {"launches": launches, "profile": card, "fit": k, "reconfig_s": executed["reconfig_s"]}
+
+
+# The simulate phase: SIM_JOBS gpt2-1.5b jobs like schedule's job A (TABLE2's
+# b 16 x s 1024, orig plan ZeRO-Offload + GC, 1 GPU and 12 CPUs, guaranteed),
+# submitted SIM_GAP_S apart onto its one-GPU node, SIM_ITERS iterations each,
+# under each of SIM_SCHEDULERS and both simulator engines.
+SIM_JOBS = 4
+SIM_GAP_S = 300.0
+SIM_ITERS = 3000.0
+SIM_SCHEDULERS = ("rubick", "rubick-n", "synergy", "sia", "antman")
+SIM_ENGINE_TOL = 0.01    # event vs discrete avg JCT and makespan (src/repro/core/simulator.py:20-22)
+SIM_DIR = Path(__file__).resolve().parent / "build" / "simulate"
+
+
+class MeasureMemo:
+    """One table of T_iter for every run of a phase: ``measure`` (the
+    oracle's signature) asks the oracle for a (plan, alloc) on its first call
+    only, so every scheduler and both engines see the same times.  ``fresh``
+    lists each measurement: plan, alloc, T_iter, the seconds it took and the
+    oracle's ``last``.  A plan or allocation of more than one card raises
+    before the oracle is asked; so does a feasible plan whose time or losses
+    are not finite."""
+
+    def __init__(self, oracle):
+        self.oracle = oracle
+        self.table: dict = {}
+        self.fresh: list[dict] = []
+
+    def measure(self, profile, plan, alloc, seed: int = 0, env=None, now: float = 0.0) -> float:
+        key = (plan, alloc)
+        if key not in self.table:
+            if plan.n_gpus > 1 or alloc.gpus > 1:
+                raise AssertionError(f"the simulation asked for {plan.strategy} on {alloc.gpus} "
+                                     f"GPUs; this node has one card")
+            t0 = time.perf_counter()
+            t = self.oracle.measure(profile, plan, alloc, env=env)
+            row = {"plan": plan, "alloc": alloc, "t_iter_s": t,
+                   "seconds": time.perf_counter() - t0}
+            if np.isfinite(t):
+                last = dict(getattr(self.oracle, "last", {}))
+                if not (t > 0 and np.isfinite(last.get("loss", [0.0])).all()):
+                    raise AssertionError(f"{plan.strategy} measured {t} s, losses "
+                                         f"{last.get('loss')}")
+                row["last"] = last
+            self.table[key] = t
+            self.fresh.append(row)
+        return self.table[key]
+
+
+def simulate_jobs(oracle, profile, fitted, env, reconfig_cost: float,
+                  trace_dir: Path | None = None) -> dict:
+    """The simulate phase's runs on any oracle with ``measure``: SIM_JOBS jobs
+    of ``profile`` on a one-GPU node, under each of SIM_SCHEDULERS
+    (repro_torch.core.baselines.ALL) and both engines, with ``fitted`` in the
+    fit cache and ``reconfig_cost`` seconds a plan change.  Rubick's event
+    run is sanitized (SchedulerConfig(sanitize=True)) and carries a
+    FlightRecorder, whose JSONL goes to ``trace_dir`` (when given) and must
+    pass ``python -m repro_torch.obs.report validate``.  Returns {"runs":
+    {scheduler: {engine: result}}, "trace": its path, "recorder": its summary}.
+    Raises on a job left unfinished, a time that is not finite, engines more
+    than SIM_ENGINE_TOL apart, a sanitizer violation or a trace that does not
+    validate."""
+    from repro_torch.core import baselines
+    from repro_torch.core.cluster import Cluster, Job
+    from repro_torch.core.perfmodel import fit_key
+    from repro_torch.core.scheduler import RubickScheduler, SchedulerConfig
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.obs import FlightRecorder, report, write_jsonl
+    from repro_torch.parallel.plan import ExecutionPlan
+
+    static = ExecutionPlan(**SCHEDULE_STATIC)
+    jobs = [Job(name=f"J{i}", profile=profile, submit=SIM_GAP_S * i, target_iters=SIM_ITERS,
+                req_gpus=1, req_cpus=12, orig_plan=static, guaranteed=True)
+            for i in range(SIM_JOBS)]
+    runs, out = {}, {}
+    for name in SIM_SCHEDULERS:
+        runs[name] = {}
+        for mode in ("event", "discrete"):
+            rec = None
+            if name == "rubick" and mode == "event":
+                sched = RubickScheduler(env, SchedulerConfig(sanitize=True))
+                sched.name = name
+                rec = FlightRecorder(meta={"arch": profile.name})
+            else:
+                sched = baselines.ALL[name](env=env)
+            sim = Simulator(Cluster(n_nodes=1, gpus_per_node=1, cpus_per_node=12), sched,
+                            oracle=oracle, env=env, reconfig_cost=reconfig_cost,
+                            fit_cache={fit_key(profile): fitted}, mode=mode, recorder=rec)
+            t0 = time.perf_counter()
+            res = sim.run(jobs)
+            wall_s = time.perf_counter() - t0
+            label = f"{name} {mode}"
+            if sorted(res.jcts) != [j.name for j in jobs]:
+                raise AssertionError(f"{label}: jobs left unfinished: finished {sorted(res.jcts)}")
+            times = list(res.jcts.values()) + [res.makespan]
+            if not np.isfinite(times).all():
+                raise AssertionError(f"{label}: times not finite: {res.jcts}, {res.makespan}")
+            runs[name][mode] = {
+                "avg_jct_s": res.avg_jct, "p99_jct_s": res.p99_jct, "makespan_s": res.makespan,
+                "n_reconfig": res.n_reconfig, "guarantee_violations": res.guarantee_violations,
+                "n_events": res.n_events, "n_sched_calls": res.n_sched_calls,
+                "total_paused_s": res.total_paused_s, "sim_wall_s": wall_s,
+                "jobs": {s.job.name: {"jct_s": res.jcts[s.job.name], "plan": plan_label(s.plan),
+                                      "alloc": [s.alloc.gpus, s.alloc.cpus],
+                                      "t_iter_ms": oracle.measure(profile, s.plan, s.alloc,
+                                                                  env=env) * 1e3,
+                                      "n_reconfig": s.n_reconfig}
+                         for s in sim.last_states}}
+            if rec is not None:
+                out["recorder"] = rec.summary()
+                if trace_dir is not None:
+                    trace_dir.mkdir(parents=True, exist_ok=True)
+                    path = write_jsonl(rec, trace_dir / f"{name}_{mode}.jsonl")
+                    if report.main(["validate", str(path)]) != 0:
+                        raise AssertionError(f"{label}: the flight-recorder trace {path} does "
+                                             f"not validate")
+                    out["trace"] = str(path)
+        ev, di = runs[name]["event"], runs[name]["discrete"]
+        apart = {key: abs(ev[key] - di[key]) / max(abs(di[key]), 1e-9)
+                 for key in ("avg_jct_s", "makespan_s")}
+        runs[name]["engines_rel_diff"] = apart
+        runs[name]["jct_rel_diff_max"] = max(
+            abs(ev["jobs"][j]["jct_s"] - di["jobs"][j]["jct_s"]) / di["jobs"][j]["jct_s"]
+            for j in ev["jobs"])
+        if max(apart.values()) > SIM_ENGINE_TOL:
+            raise AssertionError(f"{name}: the event and discrete engines are {apart} apart "
+                                 f"(limit {SIM_ENGINE_TOL})")
+    out["runs"] = runs
+    return out
+
+
+def phase_simulate(sched: dict) -> dict[str, int]:
+    """Rubick's cluster simulator over T_iter measured on the card: a fresh
+    TorchMicroOracle for gpt2-1.5b behind a MeasureMemo (one table of card
+    times for every run), schedule's profile and fit in the fit cache and its
+    measured plan change as the reconfiguration cost; simulate_jobs' runs
+    (five schedulers, both engines, the sanitized and recorded Rubick event
+    run).  Prints each scheduler's avg and p99 JCT, makespan, reconfigurations,
+    guarantee violations and each job's plan with its measured T_iter, and
+    how many plans were measured fresh and the card seconds they took.
+    Fails as simulate_jobs does, and on a wrong flash launch count or a plain
+    call; which scheduler wins is a finding."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.oracle import TorchMicroOracle
+    from repro_torch.core.perfmodel import env_for_gpu
+    from repro_torch.parallel.plan import ExecutionPlan
+
+    path = f"{PROFILE_ARCH} simulate"
+    cfg = configs.get(PROFILE_ARCH)
+    env = env_for_gpu("h100")
+    free_device_memory()
+    counters = kernel_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    oracle = TorchMicroOracle(cfg, *PROFILE_MICRO, device="cuda", seed=SEED, env=env)
+    memo = MeasureMemo(oracle)
+    want = flash_launches(cfg, ExecutionPlan(), 1 + oracle.steps)
+    sim = simulate_jobs(memo, sched["profile"], sched["fit"], env, sched["reconfig_s"], SIM_DIR)
+    for row in memo.fresh:
+        if np.isfinite(row["t_iter_s"]):
+            for name, n in flash_launches(cfg, row["plan"], 1 + oracle.steps).items():
+                want[name] += n
+    launches, plain_calls = read_counts(counters)
+    check_launches(path, cfg, 0, launches, plain_calls, want)
+    default = dataclasses.asdict(ExecutionPlan())
+    fresh = [{"plan": plan_label(r["plan"]),
+              "plan_kw": {f: v for f, v in dataclasses.asdict(r["plan"]).items()
+                          if v != default[f]},
+              "alloc": [r["alloc"].gpus, r["alloc"].cpus], "t_iter_ms": r["t_iter_s"] * 1e3,
+              "seconds": r["seconds"],
+              "step_ms_all": [x * 1e3 for x in r.get("last", {}).get("step_s", [])],
+              "peak_device_bytes": r.get("last", {}).get("peak_device_bytes")}
+             for r in memo.fresh]
+    for name, by_mode in sim["runs"].items():
+        emit("simulate_run", path=path, scheduler=name, **by_mode)
+    emit("simulate", path=path, arch=cfg.name, env="h100", n_jobs=SIM_JOBS, gap_s=SIM_GAP_S,
+         target_iters=SIM_ITERS, node={"gpus": 1, "cpus": 12},
+         reconfig_cost_s=sched["reconfig_s"], fit=fit_params(sched["fit"]),
+         t_fwd_unit=sched["profile"].t_fwd_unit, micro_t_step_ms=oracle.t_step * 1e3,
+         measured_fresh=len(fresh), measured_s=sum(r["seconds"] for r in fresh), plans=fresh,
+         summary={name: {mode: {k: by_mode[mode][k] for k in ("avg_jct_s", "makespan_s",
+                                                              "n_reconfig")}
+                         for mode in ("event", "discrete")}
+                  for name, by_mode in sim["runs"].items()},
+         trace=sim.get("trace"), recorder=sim.get("recorder"),
+         seconds=time.perf_counter() - t0, launches=launches, plain_calls=plain_calls)
+    free_device_memory()
     return launches
 
 
@@ -2111,7 +2322,9 @@ def main() -> int:
     by_path["llama2-7b train offload"] = phase_train_offload(peaks["llama2-7b"])
     prof = phase_profile()
     by_path[f"{PROFILE_ARCH} profile"] = prof["launches"]
-    by_path[f"{PROFILE_ARCH} schedule"] = phase_schedule(prof)
+    sched = phase_schedule(prof)
+    by_path[f"{PROFILE_ARCH} schedule"] = sched["launches"]
+    by_path[f"{PROFILE_ARCH} simulate"] = phase_simulate(sched)
     dist.destroy_process_group()
     # wkv6_fwd's launch count holds every call of its wrapper; the S = 1 ones
     # ran the decode kernel, reported as a kernel of its own.

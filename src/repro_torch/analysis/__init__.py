@@ -1,18 +1,21 @@
-"""Correctness tooling for the scheduling core: the port's copy of
-``repro.analysis.sanitize_enabled``, which the scheduler and the
-calibration manager read at construction.
+"""Correctness tooling for the scheduling core, copied from
+``repro.analysis``: a runtime ``SchedSanitizer``
+(``repro_torch.analysis.sanitizer``) that cross-checks the incremental
+engine's persistent indexes against recomputed ground truth, enabled by
+``SchedulerConfig(sanitize=True)`` or ``REPRO_SANITIZE=1``.  The
+reference's static invariant linter (``repro.analysis.lint``) is not
+ported yet (ROADMAP A13d).
 
-The reference's runtime ``SchedSanitizer`` (``repro/analysis/sanitizer.py``)
-and its linter are not ported yet (ROADMAP A13c).  Where sanitizing is on,
-``RubickScheduler`` and ``CalibrationManager`` call ``require_no_sanitizer``,
-which raises instead of running without the checks.
+This module stays import-light: the scheduler imports it for
+``sanitize_enabled`` at module load, and the sanitizer imports the
+scheduler — the heavy pieces load lazily to keep that cycle open.
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["sanitize_enabled", "require_no_sanitizer"]
+__all__ = ["sanitize_enabled", "SchedSanitizer", "SanitizerViolation"]
 
 _FALSEY = ("", "0", "false", "no", "off")
 
@@ -26,10 +29,8 @@ def sanitize_enabled(cfg=None) -> bool:
         not in _FALSEY
 
 
-def require_no_sanitizer(owner: str, cfg=None) -> None:
-    """Raise ``NotImplementedError`` when sanitizing is on for ``owner``:
-    the port has no ``SchedSanitizer`` yet."""
-    if sanitize_enabled(cfg):
-        raise NotImplementedError(
-            f"{owner}: sanitizing is on (SchedulerConfig(sanitize=True) or "
-            f"REPRO_SANITIZE), but SchedSanitizer is not ported yet (ROADMAP A13c)")
+def __getattr__(name):
+    if name in ("SchedSanitizer", "SanitizerViolation"):
+        from repro_torch.analysis import sanitizer
+        return getattr(sanitizer, name)
+    raise AttributeError(name)

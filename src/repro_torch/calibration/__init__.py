@@ -2,7 +2,8 @@
 
 A copy of ``repro.calibration`` for the port, held to the reference's
 refits by ``tests/test_torch_calibration.py``; the simulator and flight
-recorder named below are the reference's (ROADMAP A13c).
+recorder named below are the port's copies (``core/simulator.py``,
+``obs/``).
 
 The paper's performance model is not fit once: whenever prediction error
 on a RUNNING job exceeds a threshold, the model is refit from runtime

@@ -1,8 +1,8 @@
 """Versioned ownership of fitted params + drift-triggered refits.
 
-A copy of ``repro.calibration.manager`` for the port; a sanitizing run
-raises (``repro_torch.analysis``), and ``recorder`` stays inert until
-the flight recorder comes over (ROADMAP A13c).
+A copy of ``repro.calibration.manager`` for the port; with sanitizing
+on, every ``poll`` is cross-checked (``analysis/sanitizer.py``), and the
+simulator threads its flight recorder into ``recorder``.
 
 ``CalibrationManager`` is the authority on which ``FitParams`` are
 *current* for each model type.  The simulator streams telemetry in via
@@ -38,7 +38,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from repro_torch.analysis import require_no_sanitizer
+from repro_torch.analysis import sanitize_enabled
 from repro_torch.calibration.drift import DriftDetector, window_rmsle
 from repro_torch.calibration.store import Observation, ObservationStore
 from repro_torch.core.fitting import FitRequest, FitStats, fit_batch
@@ -84,7 +84,7 @@ class CalibrationManager:
         # cold fit (fit_batch's default 3) are needed — keep ≥2 so one
         # noisy restart can still escape a bad incumbent basin
         self.refit_restarts = refit_restarts
-        self.recorder = None           # flight recorder (A13c), opt-in
+        self.recorder = None           # flight recorder (repro_torch.obs), opt-in
         self._current: dict[tuple, FitParams] = {}
         self._profiles: dict[tuple, ModelProfile] = {}
         self._versions: dict[tuple, int] = {}
@@ -97,7 +97,10 @@ class CalibrationManager:
         # accumulated fitting-engine cost across all refits (benches
         # report this separately from simulation wall-clock)
         self.fit_stats = FitStats()
-        require_no_sanitizer("CalibrationManager")
+        self._san = None
+        if sanitize_enabled():
+            from repro_torch.analysis.sanitizer import SchedSanitizer
+            self._san = SchedSanitizer()
 
     # ------------------------------------------------------------------
     def ensure(self, profile: ModelProfile, params: FitParams,
@@ -195,6 +198,8 @@ class CalibrationManager:
                            stats=self.fit_stats)
         refits = [self._publish(key, sub, new, now)
                   for (key, sub), new in zip(pending, fitted)]
+        if self._san is not None:
+            self._san.check_manager(self)
         return refits
 
     @staticmethod

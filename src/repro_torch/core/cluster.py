@@ -3,8 +3,8 @@ simulator (paper Sec 5 + 7.3 + 7.4).
 
 A copy of ``repro.core.cluster`` for the port, held to the reference's
 outputs by ``tests/test_torch_sched.py``.  The simulator, baselines and
-flight recorder named below are the reference's; they come over with
-ROADMAP A13c.
+flight recorder named below are the port's copies (``core/simulator.py``,
+``core/baselines.py``, ``obs/``).
 
 Clusters may be heterogeneous: every node carries a ``gpu_model`` tag, and
 ``Cluster.envs`` maps each tag to the per-type ``Env`` (bandwidth tiers,

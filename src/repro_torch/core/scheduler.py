@@ -2,11 +2,11 @@
 
 A copy of ``repro.core.scheduler`` for the port (both pass engines, both
 curve engines, ``recover`` and the reconfiguration gate), held job for
-job to the reference's decisions by ``tests/test_torch_sched.py``.  The
-simulator that drives it in the reference, the flight recorder
-(``recorder``) and the health monitor (``set_quarantine``) are not
-ported yet (ROADMAP A13c): their hooks stay and are inert, and a
-sanitizing run raises (``repro_torch.analysis``).
+job to the reference's decisions by ``tests/test_torch_sched.py``, and
+driven over time by ``core/simulator.py`` (``tests/test_torch_sim.py``),
+which threads in the flight recorder (``recorder``) and the health
+monitor's quarantine (``set_quarantine``).  With sanitizing on, every
+pass is cross-checked by ``analysis/sanitizer.py``.
 
 Goals (Sec 5.1):
   1. Performance guarantee: every guaranteed job performs at least as well
@@ -57,7 +57,7 @@ import weakref
 from dataclasses import dataclass
 from time import perf_counter
 
-from repro_torch.analysis import require_no_sanitizer
+from repro_torch.analysis import sanitize_enabled
 from repro_torch.core import memory
 from repro_torch.core.cluster import (Cluster, JobState, Placement, SchedEvents,
                                 used_per_node)
@@ -91,9 +91,8 @@ class SchedulerConfig:
     # "full" (the original full-pass reference)
     pass_engine: str = "incremental"
     # runtime cross-checking of the incremental indexes against recomputed
-    # ground truth (the reference's repro.analysis.sanitizer); also enabled
-    # by the REPRO_SANITIZE environment variable.  Not ported yet: the
-    # port's scheduler raises when it is on (ROADMAP A13c)
+    # ground truth (repro_torch.analysis.sanitizer); also enabled by the
+    # REPRO_SANITIZE environment variable
     sanitize: bool = False
 
 
@@ -587,12 +586,16 @@ class RubickScheduler:
         # the monitor's live scores for observability/sanitizer checks
         self.quarantined: set[int] = set()
         self.node_health: dict[int, float] = {}
-        # flight recorder (the reference's repro.obs.FlightRecorder, ROADMAP
-        # A13c); the simulator
+        # flight recorder (repro_torch.obs.FlightRecorder); the simulator
         # attaches its own when tracing is on.  None = every emit site
         # collapses to one false branch
         self.recorder = None
-        require_no_sanitizer("RubickScheduler", self.cfg)
+        self._san = None
+        if sanitize_enabled(self.cfg):
+            # deferred import: the sanitizer recomputes ground truth with
+            # this module's own helpers (import cycle otherwise)
+            from repro_torch.analysis.sanitizer import SchedSanitizer
+            self._san = SchedSanitizer()
 
     # ------------------------------------------------------------------
     def _scope_memos(self, cluster: Cluster) -> None:
@@ -722,6 +725,8 @@ class RubickScheduler:
         if events is not None and events.refit:
             self._purge_refit_memos(events.refit)
         active = [j for j in jobs if j.status != "done"]
+        if self._san is not None:
+            self._san.begin_pass(active, cluster)
         ctx: _PassCtx | None = None
         if self.cfg.pass_engine == "incremental":
             ctx = self._ctx
@@ -902,6 +907,8 @@ class RubickScheduler:
                             continue
                     self._schedule_job(js, active, cluster, now, used,
                                        by_node, ctx, sig)
+        if self._san is not None:
+            self._san.end_pass(active, cluster, ctx, self)
         if rec is not None:
             # lint: nondeterminism — wall-clock profiler span
             rec.span_since("pass", t_pass, now,

@@ -3,7 +3,8 @@
 A copy of ``repro.core.sensitivity`` over the port's performance model,
 memory model and plan table, held to the reference's outputs (both
 engines) by ``tests/test_torch_sched.py``.  The simulator and baselines
-named below are the reference's (ROADMAP A13c).
+named below are the port's copies (``core/simulator.py``,
+``core/baselines.py``).
 
 For a job, a curve maps a resource amount (GPUs, with other types fixed —
 or CPUs under offload plans) to the BEST feasible execution plan and its

@@ -1,8 +1,8 @@
 """Synthetic trace generation (paper Sec 7.3 + 7.4).
 
 A copy of ``repro.core.trace`` for the port, held to the reference's job
-lists and event streams by ``tests/test_torch_sched.py``.  The simulator
-that consumes the streams in the reference comes over with ROADMAP A13c.
+lists and event streams by ``tests/test_torch_sched.py``.  The port's
+simulator (``core/simulator.py``) consumes the streams.
 
 Philly-style: bursty arrivals over a window, lognormal durations, GPU
 requests from the Microsoft-trace distribution, model chosen from the

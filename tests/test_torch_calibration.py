@@ -10,7 +10,8 @@ refits (parameters relative 1e-9, versions, times, window errors before and
 after), the error timeline, the fit versions and the curves left in the
 process-wide cache (the retired params' curves invalidated) equal the
 reference's.  The drift detector's threshold, evidence floor and cooldown
-and the store's window act on both sides alike.
+and the store's window act on both sides alike.  A sanitized manager
+(``REPRO_SANITIZE``) refits as an unsanitized one.
 """
 
 import math
@@ -146,9 +147,22 @@ def test_window_rmsle_and_store_match_reference():
     assert len(store) == len(jstore) == 1
 
 
-def test_sanitizing_raises_naming_a13c(monkeypatch):
+def test_sanitized_manager_matches_unsanitized(fits, monkeypatch):
+    """With ``REPRO_SANITIZE`` on, every ``poll`` that refits is
+    cross-checked (``check_manager``) and the refits, versions and curves are those of
+    an unsanitized manager, and the reference's."""
+    from repro_torch.analysis.sanitizer import SchedSanitizer
+
+    cfg = {"threshold": 0.05, "min_observations": 12, "cooldown_s": 3600.0}
+    checked = []
+    real = SchedSanitizer.check_manager
+    monkeypatch.setattr(SchedSanitizer, "check_manager",
+                        lambda self, mgr: checked.append(mgr) or real(mgr))
     monkeypatch.setenv("REPRO_SANITIZE", "yes")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        tcal.CalibrationManager()
+    assert isinstance(tcal.CalibrationManager()._san, SchedSanitizer)
+    got = _run("port", fits, cfg)
+    assert len(checked) == sum(1 for tick in got[:-1] if tick["refits"]) > 0
     monkeypatch.delenv("REPRO_SANITIZE")
-    assert tcal.CalibrationManager().enabled
+    assert tcal.CalibrationManager()._san is None
+    assert not _same(got, _run("port", fits, cfg))
+    assert not _same(got, _run("ref", fits, cfg))

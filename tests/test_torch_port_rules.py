@@ -30,10 +30,13 @@ def test_port_imports_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "assert len(mods) >= 15, mods\n"
-        "for sub in ('train', 'data', 'parallel', 'core', 'calibration'):\n"
+        "for sub in ('train', 'data', 'parallel', 'core', 'calibration', 'health', 'obs',\n"
+        "            'analysis'):\n"
         "    assert any(m.startswith(f'repro_torch.{sub}.') for m in mods), (sub, mods)\n"
         "for m in ('analysis', 'core.cluster', 'core.sensitivity', 'core.scheduler',\n"
-        "          'core.trace'):\n"
+        "          'core.trace', 'health', 'health.monitor', 'health.flaky', 'obs',\n"
+        "          'obs.recorder', 'obs.export', 'obs.report', 'analysis.sanitizer',\n"
+        "          'analysis.tables', 'core.baselines', 'core.simulator'):\n"
         "    assert f'repro_torch.{m}' in mods, (m, mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

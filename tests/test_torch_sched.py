@@ -28,9 +28,10 @@ reference's outputs on fixed inputs, faults included.
 Then the mechanism ``chip_smoke.py``'s ``schedule`` phase runs on the card,
 on a reduced gpt2-1.5b on the CPU (a one-rank gloo group in a subprocess):
 two steps under ZeRO-Offload + GC, a checkpoint, a restore under the plain
-plan that is bit-equal, two more steps, against four uninterrupted steps;
-and that sanitizing raises.  ``gpu``: the same on a cut gpt2 on the card,
-with the plan a scheduler pass picks.
+plan that is bit-equal, two more steps, against four uninterrupted steps.
+A sanitized scheduler (the config flag or ``REPRO_SANITIZE``) decides as an
+unsanitized one.  ``gpu``: the same on a cut gpt2 on the card, with the plan
+a scheduler pass picks.
 """
 
 import dataclasses
@@ -237,21 +238,26 @@ def _snapshot(states) -> list[tuple]:
             for s in states]
 
 
-def _drive(ns, kind: str, pass_engine: str, curve_engine: str, fits) -> list:
+def _drive(ns, kind: str, pass_engine: str, curve_engine: str, fits, sanitize: bool = False,
+           made: list | None = None) -> list:
     """Arrivals three at a time, the oldest running job completing every
     other pass, node 1 lost at CAPACITY_LOSS_PASS (its residents through
     ``recover``), and at REFIT_PASS the first running job's model type refit
     (its params scaled by 1.2, every live job of the type swapped to them,
     minRes and baseline reset, as the reference's simulator does).  The
-    snapshot of every job after every pass."""
+    snapshot of every job after every pass; the scheduler, sanitized when
+    asked, is appended to ``made``."""
     variant, make_cluster, quotas = TRACES[kind]
     side = 0 if ns is REF else 1
     jobs = ns.trace.generate(n_jobs=24, hours=3.0, seed=5, variant=variant, load_scale=2.0,
                              gpu_types=HET_TYPES if variant == "hetero" else None)
     cluster = make_cluster(ns.cluster)
     sched = ns.scheduler.RubickScheduler(
-        cfg=ns.scheduler.SchedulerConfig(pass_engine=pass_engine, curve_engine=curve_engine),
+        cfg=ns.scheduler.SchedulerConfig(pass_engine=pass_engine, curve_engine=curve_engine,
+                                         sanitize=sanitize),
         quotas=quotas)
+    if made is not None:
+        made.append(sched)
     fitted = {name: pair[side] for name, pair in fits.items()}
     pinned = list(fitted.values())      # the scheduler's memos key on id(fitted)
     states, snaps, now = [], [], 0.0
@@ -323,14 +329,28 @@ def test_throughput_of_matches_reference(fits):
     assert got > 0 and got == jscheduler.throughput_of(js, jpm.Env())
 
 
-def test_sanitizing_raises_naming_a13c(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        tscheduler.RubickScheduler(cfg=tscheduler.SchedulerConfig(sanitize=True))
-    monkeypatch.setenv("REPRO_SANITIZE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        tscheduler.RubickScheduler()
+@pytest.mark.parametrize("how", ["config", "env"])
+@pytest.mark.parametrize("pass_engine", ["incremental", "full"])
+def test_sanitized_scheduler_matches_unsanitized(pass_engine, how, fits, monkeypatch):
+    """Sanitizing on (``SchedulerConfig(sanitize=True)``, or
+    ``REPRO_SANITIZE=1``) cross-checks every pass and changes no decision:
+    the pass-by-pass drive of the hetero trace equals the unsanitized one and
+    the reference's."""
+    from repro_torch.analysis.sanitizer import SchedSanitizer
+
+    made = []
+    if how == "env":
+        monkeypatch.setenv("REPRO_SANITIZE", "1")
+    tsens.CURVES.clear()
+    got = _drive(PORT, "hetero", pass_engine, "batch", fits, sanitize=how == "config",
+                 made=made)
+    assert isinstance(made[0]._san, SchedSanitizer) and made[0]._san._tick == PASSES
     monkeypatch.setenv("REPRO_SANITIZE", "0")
-    assert tscheduler.RubickScheduler().cfg.sanitize is False
+    tsens.CURVES.clear()
+    assert got == _drive(PORT, "hetero", pass_engine, "batch", fits, made=made)
+    assert made[1]._san is None
+    jsens.CURVES.clear()
+    assert got == _drive(REF, "hetero", pass_engine, "batch", fits)
 
 
 # ---------------------------------------------------------------------------
