@@ -30,25 +30,43 @@ exits nonzero without printing a result:
               of tests/test_kernels.py); lse, f32 on both sides for every
               input dtype, at 2e-4 absolute; SDPA as the library yardstick,
               and kernel_vs_library = kernel ms / SDPA ms; the profile
-              phase's gpt2-1.5b shape (b 16 x s 1024) among the cases;
+              phase's gpt2-1.5b shape (b 16 x s 1024) among the cases; the
+              d 192 / dv 128 instantiation (MLA) at deepseek-v3-671b's
+              prefill (B 4, S 512, 128:128 heads, v a view of the model's
+              decompressed (B,S,H,256) buffer) in bf16 and f32, ragged
+              S = 300 and Sq < Sk, its bound taking d and dv apart (SDPA
+              "none" where it refuses dv != d);
             ssd_scan_fwd: y held at max|Δ| / max|plain| <= f32 2e-5, bf16
               3e-2, h_last at 2e-5 relative (tests/test_kernels.py:73);
             wkv6_fwd: y and S_last at 2e-5 relative (tests/test_kernels.py:88),
               the chunk kernels at S > 1 and the decode kernel at S = 1
   reference small llama (head dim 128), zamba2 (SSD scan, attention head dim
-            112) and rwkv6 models served on the card and on the CPU from
-            the same weights: logits of prefill and 3 decode steps agree to
-            1e-4 in f32 and 3e-2 in bf16
-  serve     llama2-7b, zamba2-7b and rwkv6-1.6b at full width (bf16 weights
+            112), rwkv6, moonshot (1 dense + 1 MoE layer, 8 experts top-2)
+            and deepseek-v3 (the same with MLA at its full per-head dims, so
+            the d 192 / dv 128 kernel runs) models served on the card and on
+            the CPU from the same weights: logits of prefill and 3 decode
+            steps agree to 1e-4 in f32 and 3e-2 in bf16.  The MoE models'
+            CPU calls replay the card's expert picks (a near-tie flips on
+            bf16 rounding); the CPU's router on each card call's own input
+            must pick the same experts (a fault names the token's top-k
+            margin), and in f32 so must the CPU run's router on its own
+            inputs (in bf16 such flips are counted, with their margins)
+  serve     llama2-7b, zamba2-7b, rwkv6-1.6b, moonshot-v1-16b-a3b (48 layers,
+            28.4e9 parameters) and deepseek-v3-671b (every width, depth cut
+            to 4 layers: 3 dense, 1 MoE of 256 experts, the MTP block) at
+            full width (bf16 weights
             drawn on the card from a seed), one after the other, batch 4,
             prompt 512, 32 new tokens through ServeEngine.generate; kernel
             launches counted over that one run (llama2-7b: 32 flash per
             prefill; zamba2-7b: 81 SSD and 13 flash per prefill; rwkv6-1.6b:
             24 WKV6 per prefill and per decode step, 792 in all, 768 of
-            them by the S = 1 decode kernel; 0 plain-
-            version calls); repeatable greedy output; prefill ms, decode
-            ms/token, tok/s, peak memory; decode-vs-prefill at full width
-            (rel < 0.08, as tests/test_models_smoke.py)
+            them by the S = 1 decode kernel; moonshot and deepseek: one
+            flash per layer a prefill, at d 192 / dv 128 for deepseek; 0
+            plain-version calls); repeatable greedy output; prefill ms,
+            decode ms/token, tok/s, peak memory; decode-vs-prefill at full
+            width (rel < 0.08, as tests/test_models_smoke.py; MoE at its
+            capacity factor 8, the cache path under the parallel path's
+            expert picks)
   trace     per served model: torch.profiler over one prefill and 8 decode
             steps, device time by kernel (the top 8, and each port kernel
             with its share of the busy time) and the device's idle share
@@ -179,7 +197,9 @@ exits nonzero without printing a result:
             violation, a trace that does not validate, a measure asked for a
             multi-card plan or a wrong launch count
 
-Then the kernel summary line, the nvidia-smi line, and as the last line
+Then the kernel summary line (the forward's d 192 / dv 128 instantiation
+on a line of its own, with the deepseek-v3-671b serve's launches), the
+nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 f32 matmuls and convolutions run without TF32 (both backends' allow_tf32 set
 False) so the f32 comparisons hold full f32 precision.
@@ -282,11 +302,13 @@ def band_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype):
-    """Flash attention: least time for QK^T and PV over the band, q/k/v/o/lse bytes."""
-    flops = 4.0 * B * Hq * d * band_pairs(Sq, Sk, causal, window)
+def bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv=None):
+    """Flash attention: least time for QK^T (length d) and PV (dv wide) over
+    the band, against the bytes of q, k (d wide), v, o (dv wide) and lse."""
+    dv = d if dv is None else dv
+    flops = 2.0 * B * Hq * (d + dv) * band_pairs(Sq, Sk, causal, window)
     esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * B * d * (2 * Sq * Hq + 2 * Sk * Hkv) + 4 * B * Hq * Sq
+    nbytes = esize * B * (d + dv) * (Sq * Hq + Sk * Hkv) + 4 * B * Hq * Sq
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -323,7 +345,7 @@ def phase_build():
     import ctypes
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS, HEAD_DIMS
     from repro_torch.kernels.ssd_scan import SHAPES
     from repro_torch.kernels.wkv6 import HEAD_DIMS as WKV_DIMS
 
@@ -335,7 +357,7 @@ def phase_build():
         fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
         return fn
 
-    fa = int_fn("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 2)
+    fa = int_fn("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 3)
     fb = int_fn("flash_attention_bwd", "flash_attention_bwd_smem_bytes", 3)
     ssd = int_fn("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 3)
     ssd_occ = int_fn("ssd_scan_fwd", "ssd_scan_fwd_bf16_blocks_per_sm", 0)
@@ -346,7 +368,8 @@ def phase_build():
     wkv_bwd = int_fn("wkv6_bwd", "wkv6_bwd_smem_bytes", 2)
     wkv_bwd_occ = int_fn("wkv6_bwd", "wkv6_bwd_bf16_blocks_per_sm", 1)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         smem_bytes={"flash_attention_fwd": {dt: {d: fa(d, code) for d in HEAD_DIMS}
+         smem_bytes={"flash_attention_fwd": {dt: {d if d == dv else f"{d}/{dv}": fa(d, dv, code)
+                                                  for d, dv in FWD_HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1),
                                                               ("float32", 0))},
                      "flash_attention_bwd": {f"{dt} {kern}": {d: fb(d, code, k) for d in HEAD_DIMS}
@@ -372,7 +395,11 @@ def phase_build():
 
 # (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype[, packed]); the first
 # is the serving path's shape (llama2-7b prefill, batch 4, prompt 512).
-# packed: q, k, v are strided views of one (B, S, 3, H, d) buffer.
+# packed: q, k, v are strided views of one (B, S, 3, H, d) buffer.  d is a
+# pair (d, dv) for MLA (MLA_D): q and k 192 wide, v 128, v a view of the
+# (B, S, H, 128 + 128) buffer the model decompresses it into, as the model
+# hands it over; the first such case is deepseek-v3-671b's prefill.
+MLA_D = (192, 128)
 CASES = [
     ("llama2-7b prefill", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16),
     ("packed (B,S,3,H,d) views", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16, True),
@@ -391,6 +418,13 @@ CASES = [
     ("gemma-2b MQA d=256 f32", 2, 512, 512, 8, 1, 256, True, 0, torch.float32),
     ("gpt2-1.5b ragged S=300 f32", 2, 300, 300, 25, 25, 64, True, 0, torch.float32),
     ("zamba2-7b shared block d=112", 4, 512, 512, 32, 32, 112, True, 0, torch.bfloat16),
+    ("deepseek-v3 MLA prefill d=192 dv=128", 4, 512, 512, 128, 128, MLA_D, True, 0,
+     torch.bfloat16),
+    ("deepseek-v3 MLA prefill d=192 dv=128 f32", 4, 512, 512, 128, 128, MLA_D, True, 0,
+     torch.float32),
+    ("MLA ragged S=300", 2, 300, 300, 128, 128, MLA_D, True, 0, torch.bfloat16),
+    ("MLA Sq < Sk (chunk 128 after 512)", 4, 128, 640, 128, 128, MLA_D, True, 0,
+     torch.bfloat16),
 ]
 
 
@@ -403,9 +437,12 @@ def phase_kernels():
     rows, failed = [], []
     for i, (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dt, *packed) in enumerate(CASES):
         main = i == 0
+        d, dv = d if isinstance(d, tuple) else (d, d)
         q = torch.randn((B, Sq, Hq, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
-        v = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, Sk, Hkv, dv), generator=gen, device="cuda").to(dt)
+        if dv != d:
+            v = torch.cat((torch.zeros_like(v), v), dim=-1)[..., dv:]
         if packed:
             buf = torch.stack((q, k, v), dim=2)
             q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
@@ -433,17 +470,23 @@ def phase_kernels():
         plain_mask = not window and (Sq == Sk or not causal)
         sdpa_kw = (dict(is_causal=causal) if plain_mask
                    else dict(attn_mask=band_mask(Sq, Sk, causal, window)))
-        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=Hq != Hkv, **sdpa_kw), reps)
-        bms, by, flops, nbytes = bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dt)
-        row = dict(case=label, B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, d=d, causal=causal,
+        library = "sdpa is_causal" if plain_mask else "sdpa attn_mask"
+        try:
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=Hq != Hkv, **sdpa_kw), reps)
+        except RuntimeError as e:    # the yardstick only: SDPA may refuse dv != d
+            if dv == d:
+                raise
+            library_ms, library = None, f"none (SDPA refused d {d} / dv {dv}: {str(e)[:120]})"
+        bms, by, flops, nbytes = bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dt, dv)
+        row = dict(case=label, B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, d=d, dv=dv, causal=causal,
                    window=window, dtype=str(dt).removeprefix("torch."), tol_o_row=tol,
                    tol_lse=TOL_LSE, row_rel_err_o=row_rel_o, max_abs_err_o=err_o,
                    max_abs_err_lse=err_lse, ok=ok, kernel_ms=kernel_ms,
                    kernel_ms_eager=kernel_ms_eager, plain_ms=plain_ms,
-                   library_ms=library_ms, kernel_vs_library=kernel_ms / library_ms,
-                   library="sdpa is_causal" if plain_mask else "sdpa attn_mask",
-                   packed=bool(packed),
+                   library_ms=library_ms,
+                   kernel_vs_library=kernel_ms / library_ms if library_ms else None,
+                   library=library, packed=bool(packed), v_view=dv != d,
                    bound_ms=bms, bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
                    tflops=flops / kernel_ms / 1e9)
         rows.append(row)
@@ -454,7 +497,7 @@ def phase_kernels():
     emit("kernels", kernel="flash_attention_fwd", cases=rows)
     if failed:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {failed}")
-    return rows[0]
+    return rows[0], next(r for r in rows if r["dv"] != r["d"])
 
 
 # (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype); the first is the
@@ -1069,35 +1112,122 @@ REFERENCE = {
     "rwkv6-1.6b": ("2 layers, d_model 256, 4 WKV heads of 64",
                    dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
                         rwkv_head_dim=64, rwkv_lora_decay=16, rwkv_lora_mix=16)),
+    "moonshot-v1-16b-a3b": ("2 layers (1 dense + 1 MoE), d_model 256, 2 heads of 128, 8 "
+                            "experts top-2, 1 shared, moe_d_ff 128",
+                            dict(n_layers=2, n_dense_layers=1, d_model=256, n_heads=2,
+                                 n_kv_heads=2, d_ff=512, n_experts=8, top_k=2,
+                                 n_shared_experts=1, moe_d_ff=128)),
+    "deepseek-v3-671b": ("2 layers (1 dense + 1 MoE) and the MTP block, d_model 256, 2 MLA "
+                         "heads at the full per-head dims (qk_nope 128 + qk_rope 64, v 128: "
+                         "the d 192 / dv 128 kernel), q_lora 64, kv_lora 32, 8 experts "
+                         "top-2, 1 shared, moe_d_ff 128",
+                         dict(n_layers=2, n_dense_layers=1, d_model=256, n_heads=2,
+                              n_kv_heads=2, d_ff=512, n_experts=8, top_k=2,
+                              n_shared_experts=1, moe_d_ff=128, q_lora_rank=64,
+                              kv_lora_rank=32)),
 }
+
+
+def topk_margin(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Per token, the k-th largest probability less the (k+1)-th: how far the
+    router's input is from flipping a pick."""
+    top = probs.float().topk(k + 1, dim=-1).values
+    return top[:, k - 1] - top[:, k]
+
+
+@torch.no_grad()
+def route_check(card_log, cpu_log, cpu_params, cfg, strict: bool) -> tuple[dict, list[str]]:
+    """The MoE routers of a card run and of the CPU run that replayed its
+    picks: (summary, faults).  Each card call's input is routed again by the
+    CPU's router: a pick that differs is a fault, named with the token's
+    top-k margin.  The CPU run's own top k on its own inputs is compared with
+    the picks it replayed: under ``strict`` (f32, whose noise is ~1e-6) a
+    difference is a fault too; in bf16 it is reported with its margins
+    (rounding noise flips near-ties)."""
+    from repro_torch.models import moe
+
+    K = cfg.top_k
+    routers = [lp.moe.router for lp in cpu_params.moe_layers]
+    same_input, own_input, own_margins = [], [], []
+    for i, ((xg, _, eg), (_, pc, ec)) in enumerate(zip(card_log.seen, cpu_log.seen)):
+        pr, _, again = moe.route(routers[i % len(routers)], xg.cpu(), K)
+        bad = (again.sort(-1).values != eg.cpu().sort(-1).values).any(-1)
+        for t in bad.nonzero()[:, 0].tolist():
+            same_input.append(f"call {i} token {t}: card picks {eg[t].tolist()}, the CPU's "
+                              f"router on the same input {again[t].tolist()}, top-{K} margin "
+                              f"{float(topk_margin(pr[t:t + 1], K)[0]):.3g}")
+        own = pc.topk(K, dim=-1).indices.sort(-1).values
+        flip = (own != ec.sort(-1).values).any(-1)
+        for t in flip.nonzero()[:, 0].tolist():
+            margin = float(topk_margin(pc[t:t + 1], K)[0])
+            own_margins.append(margin)
+            own_input.append(f"call {i} token {t}: the CPU's own input picks "
+                             f"{own[t].tolist()}, the card's {ec[t].tolist()}, top-{K} "
+                             f"margin {margin:.3g}")
+    summary = {"calls": len(card_log.seen), "same_input_mismatches": len(same_input),
+               "own_input_flips": len(own_input),
+               "own_input_flip_margins": sorted(own_margins)[:8]}
+    return summary, same_input + (own_input if strict else [])
+
+
+def reference_run(cfg, device: str = "cuda") -> tuple[list[float], dict, list[str]]:
+    """One small model served on ``device`` and on the CPU from the same
+    weights, prefill of 2 x 100 then 3 decode steps: (rel of each step's
+    logits, route summary, route faults).  For a MoE model each CPU call
+    replays the experts the card picked for it (moe.ROUTE_LOG): a pick is a
+    discontinuous function of its input, and the card's and the CPU's bf16
+    hidden states differ by rounding, so a near-tie could flip and move a
+    token's output by O(1).  The routers are held to each other apart, on
+    the same inputs (route_check)."""
+    from repro_torch.models import build, moe
+
+    cpu, gpu = build(cfg, device="cpu", seed=SEED), build(cfg, device=device)
+    pc = cpu.init()
+    pg = gpu.load({k: v.to(device) for k, v in pc.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 100)))
+    card_log, cpu_log = moe.RouteLog(), moe.RouteLog()
+
+    def both(card_step, cpu_step):
+        """The card's step (its picks recorded), then the CPU's (replaying them)."""
+        n = len(card_log.seen)
+        moe.ROUTE_LOG = card_log
+        card = card_step()
+        cpu_log.replay = [e for _, _, e in card_log.seen[n:]]
+        moe.ROUTE_LOG = cpu_log
+        return card, cpu_step()
+
+    try:
+        (cg, lg), (cc, lc) = both(lambda: gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(device)),
+                                  lambda: cpu.prefill(pc, cpu.init_cache(2, 104), toks))
+        rel = [_rel(lg.cpu(), lc)]
+        for _ in range(3):
+            nxt = lc.argmax(-1)
+            (cg, lg), (cc, lc) = both(lambda: gpu.decode_step(pg, cg, nxt.to(device)),
+                                      lambda: cpu.decode_step(pc, cc, nxt))
+            rel.append(_rel(lg.cpu(), lc))
+    finally:
+        moe.ROUTE_LOG = None
+    if not cfg.n_experts:
+        return rel, {}, []
+    routes, faults = route_check(card_log, cpu_log, pc, cfg, strict=cfg.dtype == "float32")
+    return rel, routes, faults
 
 
 def phase_reference():
     from repro_torch import configs
-    from repro_torch.models import build
 
     out, failed = {}, []
     for arch, (what, cut) in REFERENCE.items():
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).removeprefix("torch.")
             cfg = configs.get(arch).with_(vocab_size=512, dtype=name, **cut)
-            cpu, gpu = build(cfg, device="cpu", seed=SEED), build(cfg, device="cuda")
-            pc = cpu.init()
-            pg = gpu.load({k: v.cuda() for k, v in pc.state_dict().items()})
-            toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-                0, cfg.vocab_size, (2, 100)))
-            cc, lc = cpu.prefill(pc, cpu.init_cache(2, 104), toks)
-            cg, lg = gpu.prefill(pg, gpu.init_cache(2, 104), toks.cuda())
-            rel = [_rel(lg.cpu(), lc)]
-            nxt = lc.argmax(-1)
-            for _ in range(3):
-                cc, lc = cpu.decode_step(pc, cc, nxt)
-                cg, lg = gpu.decode_step(pg, cg, nxt.cuda())
-                rel.append(_rel(lg.cpu(), lc))
-                nxt = lc.argmax(-1)
-            out[f"{arch} {name}"] = {"cfg": f"{arch} widths cut to {what}, {name}, prompt 100",
-                                     "tol": TOL_REF[dt], "prefill_then_decode_rel": rel}
-            if max(rel) >= TOL_REF[dt]:
+            rel, routes, faults = reference_run(cfg)
+            entry = {"cfg": f"{arch} widths cut to {what}, {name}, prompt 100",
+                     "tol": TOL_REF[dt], "prefill_then_decode_rel": rel}
+            if cfg.n_experts:
+                entry.update(routes=routes, route_faults=faults[:4])
+            out[f"{arch} {name}"] = entry
+            if max(rel) >= TOL_REF[dt] or faults:
                 failed.append(f"{arch} {name}")
     emit("reference", **out)
     if failed:
@@ -1147,6 +1277,8 @@ def phase_train_reference():
     optcfg = OptConfig(lr=1e-3)
     out, failed = {}, []
     for arch, (what, cut) in REFERENCE.items():
+        if "n_experts" in cut:        # MoE / MLA training is ROADMAP A15b
+            continue
         for dtype, (tol_loss, tol_grad) in TRAIN_TOL.items():
             cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
             for label, plan in plans.items():
@@ -1250,7 +1382,53 @@ SERVED = {
                                  "flash_attention_fwd": cfg.n_layers // cfg.attn_every},
     "rwkv6-1.6b": lambda cfg, G: {"wkv6_fwd": cfg.n_layers * (G + 1),
                                   "wkv6_decode": cfg.n_layers * G},
+    "moonshot-v1-16b-a3b": lambda cfg, G: {"flash_attention_fwd": cfg.n_layers},
+    # every launch at d 192 / dv 128 (MLA prefill)
+    "deepseek-v3-671b": lambda cfg, G: {"flash_attention_fwd": cfg.n_layers},
 }
+# Served models cut in depth to fit one card: (what was cut, the cut).
+SERVE_CUT = {
+    "deepseek-v3-671b": ("n_layers 61 -> 4 (its 3 dense layers and 1 MoE layer of 256 experts, "
+                         "plus the MTP block): 671.7e9 parameters do not fit one card; every "
+                         "width is the published one", dict(n_layers=4)),
+}
+
+
+def split_picks(seen, B: int, k: int) -> list[torch.Tensor]:
+    """The picks a prefill of k + 1 tokens made (one dispatch chunk a layer),
+    as a prefill of its first k tokens and a decode of token k make them, in
+    call order."""
+    picks = [eidx.view(B, k + 1, -1) for _, _, eidx in seen]
+    return [e[:, :k].reshape(B * k, -1) for e in picks] + [e[:, k] for e in picks]
+
+
+def decode_vs_prefill(model, params, tokens) -> float:
+    """rel of prefill(t[:k]) + decode(t[k]) against prefill(t[:k+1]), k = P - 1.
+    A MoE model runs at capacity factor 8, as tests/test_models_smoke.py
+    (token dropping depends on the sequence length by design), and its cache
+    path under the experts its parallel path picked: the two paths' bf16
+    rounding differs, and a near-tie in a router flips on it."""
+    from repro_torch.models import build, moe
+
+    B, P = tokens.shape
+    k = P - 1
+    if model.cfg.n_experts:
+        model = build(model.cfg.with_(capacity_factor=8.0), device=model.device,
+                      opts=model.opts)
+    try:
+        moe.ROUTE_LOG = par_log = moe.RouteLog()
+        _, par = model.prefill(params, model.init_cache(B, P + 1), tokens)
+        moe.ROUTE_LOG = log = moe.RouteLog(split_picks(par_log.seen, B, k))
+        del par_log
+        cache, _ = model.prefill(params, model.init_cache(B, P + 1), tokens[:, :k])
+        _, dec = model.decode_step(params, cache, tokens[:, k])
+        if log.replay:
+            raise AssertionError(f"{model.cfg.name}: {len(log.replay)} replayed picks unused")
+    finally:
+        moe.ROUTE_LOG = None
+    if not finite(dec.float(), par.float()):
+        raise AssertionError(f"{model.cfg.name}: logits not finite at full width")
+    return _rel(dec, par)
 
 
 def phase_serve(arch: str) -> dict[str, int]:
@@ -1258,7 +1436,8 @@ def phase_serve(arch: str) -> dict[str, int]:
     from repro_torch.models import build
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = configs.get(arch)
+    cut, cut_kw = SERVE_CUT.get(arch, ("none", {}))
+    cfg = configs.get(arch).with_(**cut_kw)
     B, P, G = 4, 512, 32
     model = build(cfg, device="cuda", seed=SEED)
     t0 = time.perf_counter()
@@ -1314,22 +1493,16 @@ def phase_serve(arch: str) -> dict[str, int]:
     del cache, logits
 
     # Decode must continue prefill: prefill(t[:k]) + decode(t[k]) vs prefill(t[:k+1]).
-    k = P - 1
-    cache, _ = model.prefill(params, model.init_cache(B, P + 1), tokens[:, :k])
-    _, dec = model.decode_step(params, cache, tokens[:, k])
-    _, par = model.prefill(params, model.init_cache(B, P + 1), tokens)
-    rel = _rel(dec, par)
-    ok = finite(dec.float(), par.float())
-    del cache
-    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+    rel = decode_vs_prefill(model, params, tokens)
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, cut=cut,
          n_params=n_params, dtype="bfloat16", batch=B, prompt=P, gen=G,
          init_s=init_s, cold_generate_s=cold_s, warm_generate_s=warm_s,
          tok_per_s=B * G / warm_s, prefill_ms=min(prefill_s) * 1e3,
          prefill_ms_all=[s * 1e3 for s in prefill_s], decode_ms_per_token=decode_ms,
          decode_tok_per_s=B / decode_ms * 1e3, max_memory_allocated=peak,
          launches=launches, plain_calls=plain_calls,
-         decode_vs_prefill_rel=rel, logits_finite=ok, first_tokens=out[0, :8].tolist())
-    if not ok or rel >= 0.08:
+         decode_vs_prefill_rel=rel, first_tokens=out[0, :8].tolist())
+    if rel >= 0.08:
         raise AssertionError(f"{arch}: decode/prefill mismatch at full width: rel={rel}")
     phase_trace(arch, model, params, tokens, P + G + 1)
     del engine, params, model
@@ -2304,7 +2477,8 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    mains = {"flash_attention_fwd": phase_kernels(), "ssd_scan_fwd": phase_ssd_kernels()}
+    mains = {"ssd_scan_fwd": phase_ssd_kernels()}
+    mains["flash_attention_fwd"], mains["flash_attention_fwd_mla"] = phase_kernels()
     mains["wkv6_fwd"], mains["wkv6_decode"] = phase_wkv_kernels()
     phase_reference()
     by_path = {arch: phase_serve(arch) for arch in SERVED}
@@ -2345,17 +2519,27 @@ def main() -> int:
                      "wkv_chunked; no Pallas kernel)", "max_abs_err"),
         "wkv6_decode": ("wkv6_fwd.cu", "src/repro/kernels/wkv6.py:76", "max_abs_err_y"),
     }
+    # The d 192 / dv 128 instantiation of the forward, on its own line: its
+    # launches are the deepseek-v3-671b serve's (every one of which is MLA);
+    # flash_attention_fwd's count holds them too.
+    sources["flash_attention_fwd_mla"] = sources["flash_attention_fwd"]
+    mla_path = "deepseek-v3-671b"
+    for arch, counts in by_path.items():
+        counts["flash_attention_fwd_mla"] = counts["flash_attention_fwd"] if arch == mla_path \
+            else 0
     kernels = []
     for kname, (src, tpu, err_key) in sources.items():
         main_case = mains[kname]
         kernels.append({
-            "name": kname,
+            "name": kname if kname != "flash_attention_fwd_mla"
+            else "flash_attention_fwd (d 192, dv 128)",
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu,
             "launches": sum(counts[kname] for counts in by_path.values()),
             "launches_by_path": {arch: counts[kname] for arch, counts in by_path.items()
                                  if counts[kname]},
+            "case": main_case.get("case"),
             "max_abs_err": main_case[err_key],
             "ms": main_case["kernel_ms"],
             "plain_ms": main_case["plain_ms"],

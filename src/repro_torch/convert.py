@@ -12,8 +12,13 @@
 and returns a state dict for ``Model.load``: the same weights, same dtypes
 (the f32 leaves of the SSM families stay f32 beside the model dtype), with
 every stacked layer axis unstacked (``layers/`` into ``layers.<i>.``,
-``ssm_layers/`` into ``ssm_layers.<i>.``) and the singleton stack axis of
-the hybrid's ``shared/`` block dropped.  A missing or unexpected key, a
+``ssm_layers/`` into ``ssm_layers.<i>.``, and a MoE model's two groups,
+``dense_layers/`` and ``moe_layers/``, each by its own count) and the
+singleton stack axis of the hybrid's ``shared/`` block and of the MTP
+block's ``mtp/layer/`` dropped.  A MoE leaf keeps its expert axis after the
+layer axis (``we_in`` (L,E,D,fin) gives ``moe_layers.<i>.moe.we_in``
+(E,D,fin)), and every leaf its declared dtype (the f32 router beside bf16
+experts).  A missing or unexpected key, a
 shape or a dtype that does not match the module the config builds raises;
 nothing is skipped.  So a checkpoint a JAX job wrote serves in torch: the
 paper's reconfiguration across a restart, here across frameworks.
@@ -23,6 +28,7 @@ restacked on a leading axis (the hybrid's ``shared.`` block on a leading
 axis of 1), giving either the nested JAX tree (bfloat16 leaves as their
 uint16 bit patterns: numpy has no bfloat16; ``a.view(jnp.bfloat16)`` on the
 JAX side) or the flat ``params/``-prefixed keys of ``arrays.npz``.
+Each group is restacked by the layers it holds.
 ``opt_state_to_jax_numpy`` and ``opt_state_from_jax_numpy`` do the same for
 the optimizer state ``{"count", "m", "v"}`` (Lion: no ``v``), whose JAX keys
 sit under ``opt/``.  So a torch checkpoint restores in JAX too.
@@ -40,8 +46,19 @@ from repro_torch.models import nn
 from repro_torch.models.api import family_of
 
 _BF16 = "::bf16"
-STACKED = ("layers", "ssm_layers")   # leading axis: one entry per layer
-SINGLETON = ("shared",)              # leading axis of 1: one shared block
+# Stacked layer groups: the leading axis holds one entry per layer of the group.
+STACKED = ("layers", "ssm_layers", "dense_layers", "moe_layers")
+SINGLETON = ("shared", "mtp/layer")  # leading axis of 1: one block
+
+
+def _group_size(head: str, cfg: ModelConfig) -> int:
+    return {"dense_layers": cfg.n_dense_layers,
+            "moe_layers": cfg.n_moe_layers}.get(head, cfg.n_layers)
+
+
+def _singleton(path: str, sep: str) -> bool:
+    """Whether ``path`` (in ``sep`` notation) lies under a SINGLETON prefix."""
+    return any(path.startswith(prefix.replace("/", sep) + sep) for prefix in SINGLETON)
 
 
 def _bf16(bits: np.ndarray) -> torch.Tensor:
@@ -98,15 +115,16 @@ def _unstack(leaves: dict[str, torch.Tensor], cfg: ModelConfig) -> dict[str, tor
         head, _, rest = path.partition("/")
         name = rest.replace("/", ".")
         if head in STACKED and rest:
-            if t.shape[0] != cfg.n_layers:
-                raise ValueError(f"{path}: leading axis {t.shape[0]} != n_layers "
-                                 f"{cfg.n_layers}")
-            for i in range(cfg.n_layers):
+            n = _group_size(head, cfg)
+            if t.shape[0] != n:
+                raise ValueError(f"{path}: leading axis {t.shape[0]} != the {n} layers "
+                                 f"of {head}")
+            for i in range(n):
                 state[f"{head}.{i}.{name}"] = t[i].clone()
-        elif head in SINGLETON and rest:
+        elif _singleton(path, "/"):
             if t.shape[0] != 1:
                 raise ValueError(f"{path}: leading axis {t.shape[0]} != 1")
-            state[f"{head}.{name}"] = t[0].clone()
+            state[path.replace("/", ".")] = t[0].clone()
         else:
             state[path.replace("/", ".")] = t
     return state
@@ -147,8 +165,8 @@ def _stack(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         if head in STACKED:
             i, _, leaf = rest.partition(".")
             stacks.setdefault(f"{head}/{leaf.replace('.', '/')}", {})[int(i)] = t
-        elif head in SINGLETON:
-            out[f"{head}/{rest.replace('.', '/')}"] = t[None]
+        elif _singleton(name, "."):
+            out[name.replace(".", "/")] = t[None]
         else:
             out[name.replace(".", "/")] = t
     for key, by_layer in stacks.items():

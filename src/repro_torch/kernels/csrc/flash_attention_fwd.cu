@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`_kernel` + `flash_attention`, pallas_call at :110).  Same function:
-// online-softmax attention forward over q (B,Sq,Hq,d), k/v (B,Sk,Hkv,d),
+// online-softmax attention forward over q (B,Sq,Hq,d), k (B,Sk,Hkv,d) and
+// v (B,Sk,Hkv,dv), with dv = d or, for DeepSeek-V3's multi-head latent
+// attention, d = 192 (128 nope + 64 rope) and dv = 128,
 // GQA/MQA by kv_head = q_head / (Hq/Hkv) with no repeated K/V, causal and
 // sliding-window masks, f32 running max / denominator / accumulator, output
 // in q's dtype divided by max(l, 1e-30).  It differs from the Pallas kernel
@@ -14,6 +16,10 @@
 //     Pallas wrapper asserts that the blocks divide the lengths;
 //   * layout: (B,S,H,d) is read in place through its strides, no transposes;
 //   * it also writes lse = m + log(l) (natural log, f32, (B,Hq,Sq)).
+// Both kernels are templated on the two head dims <DK, DV>: Q and K rows
+// are DK wide, V and O rows DV wide.  The pairs built are (d, d) for d in
+// 64, 112, 128, 256 and (192, 128); for DK == DV the code is the one-dim
+// kernel it was.
 //
 // What bounds it on the card.  At the llama2-7b prefill shape (B 4, S 512,
 // 32 heads, d 128, causal, bf16) the kernel must move about 67.4 MB of
@@ -101,19 +107,24 @@ namespace tc {
 // (tools/flash_tile_sweep.py, which rewrites this one line to time others).
 template <int D> struct Tile { static constexpr int WARPS = 4, MT = 1, BN = D >= 128 ? 32 : 64; };
 
-template <int D>
+// The tile is chosen by the QK head dim DK (at (192, 128): 32 keys, as at
+// 128 and 256).
+template <int DK, int DV>
 struct Cfg {
-  static constexpr int WARPS = Tile<D>::WARPS, MT = Tile<D>::MT, BN = Tile<D>::BN;
+  static_assert(DV <= DK, "O is staged in the rows of the Q buffer");
+  static constexpr int WARPS = Tile<DK>::WARPS, MT = Tile<DK>::MT, BN = Tile<DK>::BN;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BQ = 16 * MT * WARPS;     // query rows per block
-  static constexpr int LD = D + 8;               // shared row stride (elements)
-  static constexpr int CH = D / 8;               // 16-byte chunks per row
-  static constexpr int KS = D / 16;              // k-steps of Q K^T
+  static constexpr int LD = DK + 8;              // shared row stride of Q and K (elements)
+  static constexpr int LDV = DV + 8;             // shared row stride of V
+  static constexpr int CH = DK / 8;              // 16-byte chunks per Q / K row
+  static constexpr int CHV = DV / 8;             // 16-byte chunks per V / O row
+  static constexpr int KS = DK / 16;             // k-steps of Q K^T
   static constexpr int NT = BN / 8;              // n-tiles of S
-  static constexpr int DT = D / 8;               // n-tiles of O
-  static constexpr bool Q_REGS = MT * D <= 128;  // Q fragments kept in registers
+  static constexpr int DT = DV / 8;              // n-tiles of O
+  static constexpr bool Q_REGS = MT * DK <= 128; // Q fragments kept in registers
   // Q, then two stages of K, then two stages of V.
-  static constexpr int SMEM = (BQ + 4 * BN) * LD * 2;
+  static constexpr int SMEM = ((BQ + 2 * BN) * LD + 2 * BN * LDV) * 2;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -168,15 +179,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const Params p) {
-  using C = Cfg<D>;
-  constexpr int BQ = C::BQ, BN = C::BN, LD = C::LD, CH = C::CH, MT = C::MT;
-  constexpr int THREADS = C::THREADS;
+template <int DK, int DV>
+__global__ void __launch_bounds__(Cfg<DK, DV>::THREADS) flash_fwd_bf16_kernel(const Params p) {
+  using C = Cfg<DK, DV>;
+  constexpr int BQ = C::BQ, BN = C::BN, LD = C::LD, LDV = C::LDV, CH = C::CH, CHV = C::CHV;
+  constexpr int MT = C::MT, THREADS = C::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BQ x LD
   __nv_bfloat16* sK = sQ + BQ * LD;                                   // 2 x BN x LD
-  __nv_bfloat16* sV = sK + 2 * BN * LD;                               // 2 x BN x LD
+  __nv_bfloat16* sV = sK + 2 * BN * LD;                               // 2 x BN x LDV
 
   // Heaviest causal tiles (the last ones) are scheduled first.
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -213,13 +224,26 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const P
     const int k0 = t * BN;
     const int nk = min(BN, p.Sk - k0);
     __nv_bfloat16* dk = sK + stage * BN * LD;
-    __nv_bfloat16* dv = sV + stage * BN * LD;
-    for (int e = tid; e < BN * CH; e += THREADS) {
-      const int r = e / CH, c = (e % CH) * 8;
-      const bool ok = r < nk;
-      const long long row = ok ? k0 + r : 0;
-      cp_async16(smem_u32(dk + r * LD + c), kb + row * p.k_ss + c, ok);
-      cp_async16(smem_u32(dv + r * LD + c), vb + row * p.v_ss + c, ok);
+    __nv_bfloat16* dv = sV + stage * BN * LDV;
+    if constexpr (DK == DV) {
+      for (int e = tid; e < BN * CH; e += THREADS) {
+        const int r = e / CH, c = (e % CH) * 8;
+        const bool ok = r < nk;
+        const long long row = ok ? k0 + r : 0;
+        cp_async16(smem_u32(dk + r * LD + c), kb + row * p.k_ss + c, ok);
+        cp_async16(smem_u32(dv + r * LDV + c), vb + row * p.v_ss + c, ok);
+      }
+    } else {
+      for (int e = tid; e < BN * CH; e += THREADS) {
+        const int r = e / CH, c = (e % CH) * 8;
+        const bool ok = r < nk;
+        cp_async16(smem_u32(dk + r * LD + c), kb + (ok ? k0 + r : 0) * p.k_ss + c, ok);
+      }
+      for (int e = tid; e < BN * CHV; e += THREADS) {
+        const int r = e / CHV, c = (e % CHV) * 8;
+        const bool ok = r < nk;
+        cp_async16(smem_u32(dv + r * LDV + c), vb + (ok ? k0 + r : 0) * p.v_ss + c, ok);
+      }
     }
   };
   if (t_begin < t_end) load_kv(t_begin, 0);
@@ -232,7 +256,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const P
   // column half lane / 16.
   const uint32_t q_addr = smem_u32(sQ + (wrow + (lane & 15)) * LD + (lane >> 4) * 8);
   const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-  const int v_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+  const int v_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDV + (lane >> 4) * 8;
 
   // Per lane: rows g and g + 8 of each of the warp's MT m-tiles.
   uint32_t qf[C::Q_REGS ? MT * C::KS : 1][4];
@@ -359,7 +383,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const P
     }
 
     // O += P V, P as bf16 A fragments straight from the S accumulator.
-    const uint32_t v_base = smem_u32(sV + stage * BN * LD + v_lane);
+    const uint32_t v_base = smem_u32(sV + stage * BN * LDV + v_lane);
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t a[MT][4];
@@ -373,7 +397,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const P
 #pragma unroll
       for (int dp = 0; dp < C::DT / 2; ++dp) {
         uint32_t vf[4];
-        ldsm_x4_trans(vf, v_base + (kk * 16 * LD + dp * 16) * 2);
+        ldsm_x4_trans(vf, v_base + (kk * 16 * LDV + dp * 16) * 2);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(acc[mt][2 * dp], a[mt], vf[0], vf[1]);
@@ -410,8 +434,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const P
   __syncwarp();
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh +
                       q0 * p.o_ss;
-  for (int e = lane; e < 16 * MT * CH; e += 32) {
-    const int r = e / CH, c = (e % CH) * 8;
+  for (int e = lane; e < 16 * MT * CHV; e += 32) {
+    const int r = e / CHV, c = (e % CHV) * 8;
     const int row = wrow + r;
     if (row < nq)
       *reinterpret_cast<uint4*>(ob + row * p.o_ss + c) =
@@ -430,14 +454,14 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_fwd_bf16_kernel(const P
   }
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+  using C = Cfg<DK, DV>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + C::BQ - 1) / C::BQ, p.Hq, B);
-  flash_fwd_bf16_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(p);
+  flash_fwd_bf16_kernel<DK, DV><<<grid, C::THREADS, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -455,10 +479,11 @@ constexpr int THREADS = 256;     // 16 x 16
 constexpr int ROWS = BQ / 16;    // query rows per thread
 constexpr int COLS = BK / 16;    // score columns per thread
 
-// Dynamic shared memory of one block: Q and one K/V tile (rows padded to
-// D + 1) and the P tile (rows padded to BK + 1).
-constexpr int smem_bytes(int D) {
-  return (int)(((BQ + BK) * (D + 1) + BQ * (BK + 1)) * sizeof(float));
+// Dynamic shared memory of one block: Q (rows padded to DK + 1), one K or
+// V tile (rows padded to DK + 1 or DV + 1; DV <= DK) and the P tile (rows
+// padded to BK + 1).
+constexpr int smem_bytes(int DK) {
+  return (int)(((BQ + BK) * (DK + 1) + BQ * (BK + 1)) * sizeof(float));
 }
 
 // Stage 64 rows (row stride `ss` elements) of a (S, D) slab into shared
@@ -484,12 +509,13 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) {
+  static_assert(DV <= DK, "V shares the K tile's buffer");
   extern __shared__ float smem[];
-  float* q_s = smem;                    // BQ x (D + 1)
-  float* kv_s = q_s + BQ * (D + 1);     // BK x (D + 1): K, then V, of one tile
-  float* p_s = kv_s + BK * (D + 1);     // BQ x (BK + 1)
+  float* q_s = smem;                    // BQ x (DK + 1)
+  float* kv_s = q_s + BQ * (DK + 1);    // BK x (DK + 1), then BK x (DV + 1): K, then V
+  float* p_s = kv_s + BK * (DK + 1);    // BQ x (BK + 1)
 
   // Heaviest causal tiles (the last ones) are scheduled first.
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -506,7 +532,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<D>(q_s, qb, p.q_ss, nq);
+  load_tile<DK>(q_s, qb, p.q_ss, nq);
 
   // Keys this q tile can see: [lo, hi).
   int hi = p.Sk;
@@ -514,19 +540,19 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
   int lo = 0;
   if (p.window) lo = max(0, off + q0 - p.window + 1);
 
-  float m[ROWS], l[ROWS], acc[ROWS][D / 16];
+  float m[ROWS], l[ROWS], acc[ROWS][DV / 16];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     m[i] = -CUDART_INF_F;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DV / 16; ++j) acc[i][j] = 0.f;
   }
 
   for (int k0 = (lo / BK) * BK; k0 < hi; k0 += BK) {
     const int nk = min(BK, p.Sk - k0);
     __syncthreads();                    // previous V tile consumed; Q staged
-    load_tile<D>(kv_s, kb + k0 * p.k_ss, p.k_ss, nk);
+    load_tile<DK>(kv_s, kb + k0 * p.k_ss, p.k_ss, nk);
     __syncthreads();
 
     float s[ROWS][COLS];
@@ -535,12 +561,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
 #pragma unroll
       for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < DK; ++c) {
       float qv[ROWS], kv[COLS];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = q_s[(ty + 16 * i) * (D + 1) + c];
+      for (int i = 0; i < ROWS; ++i) qv[i] = q_s[(ty + 16 * i) * (DK + 1) + c];
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) kv[j] = kv_s[(tx + 16 * j) * (D + 1) + c];
+      for (int j = 0; j < COLS; ++j) kv[j] = kv_s[(tx + 16 * j) * (DK + 1) + c];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i)
 #pragma unroll
@@ -575,11 +601,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
       l[i] = l[i] * corr + row_sum16(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < DV / 16; ++j) acc[i][j] *= corr;
     }
 
     __syncthreads();                    // K reads done, P visible
-    load_tile<D>(kv_s, vb + k0 * p.v_ss, p.v_ss, nk);
+    load_tile<DV>(kv_s, vb + k0 * p.v_ss, p.v_ss, nk);
     __syncthreads();
 
 #pragma unroll 4
@@ -588,8 +614,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) pv[i] = p_s[(ty + 16 * i) * (BK + 1) + c];
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const float vv = kv_s[c * (D + 1) + tx + 16 * j];
+      for (int j = 0; j < DV / 16; ++j) {
+        const float vv = kv_s[c * (DV + 1) + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < ROWS; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -604,60 +630,64 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
     const float inv = 1.f / lc;
     float* orow = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)(q0 + r) * p.o_ss;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
+    for (int j = 0; j < DV / 16; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
     if (tx == 0)
       p.lse[((long long)b * p.Hq + h) * p.Sq + q0 + r] = (m[i] + log2f(lc)) * LN2;
   }
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const int smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+  const int smem = smem_bytes(DK);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B);
-  flash_fwd_f32_kernel<D><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_f32_kernel<DK, DV><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace f32
 
 // dtype: 0 = float32, 1 = bfloat16.
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return f32::launch<D>(p, B, stream);
-  if (dtype == 1) return tc::launch<D>(p, B, stream);
+  if (dtype == 0) return f32::launch<DK, DV>(p, B, stream);
+  if (dtype == 1) return tc::launch<DK, DV>(p, B, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DK, int DV>
 int smem_of(int dtype) {
-  return dtype == 0 ? f32::smem_bytes(D) : dtype == 1 ? tc::Cfg<D>::SMEM : -1;
+  return dtype == 0 ? f32::smem_bytes(DK) : dtype == 1 ? tc::Cfg<DK, DV>::SMEM : -1;
 }
 
 }  // namespace
 
-// Shared memory a block takes at head dim D for dtype (0 = float32,
+// Shared memory a block takes at head dims (D, Dv) for dtype (0 = float32,
 // 1 = bfloat16); -1 if the pair is not supported.
-extern "C" int flash_attention_fwd_smem_bytes(int D, int dtype) {
+extern "C" int flash_attention_fwd_smem_bytes(int D, int Dv, int dtype) {
+  if (D == 192 && Dv == 128) return smem_of<192, 128>(dtype);
+  if (D != Dv) return -1;
   switch (D) {
-    case 64: return smem_of<64>(dtype);
-    case 112: return smem_of<112>(dtype);
-    case 128: return smem_of<128>(dtype);
-    case 256: return smem_of<256>(dtype);
+    case 64: return smem_of<64, 64>(dtype);
+    case 112: return smem_of<112, 112>(dtype);
+    case 128: return smem_of<128, 128>(dtype);
+    case 256: return smem_of<256, 256>(dtype);
     default: return -1;
   }
 }
 
-// Plain C entry point (loaded with ctypes).  Strides are in elements; the
-// last dim of q, k, v and o must be contiguous.  For bfloat16 the data
-// pointers must be 16-byte aligned and the batch, row and head strides
-// multiples of 8 (the wrapper checks).  dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
+// Plain C entry point (loaded with ctypes).  q and k are D wide, v and o Dv
+// wide; the pairs (D, Dv) taken are (64, 64), (112, 112), (128, 128),
+// (256, 256) and (192, 128).  Strides are in elements; the last dim of q,
+// k, v and o must be contiguous.  For bfloat16 the data pointers must be
+// 16-byte aligned and the batch, row and head strides multiples of 8 (the
+// wrapper checks).  dtype: 0 = float32, 1 = bfloat16.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
-                                   long long q_sb, long long q_ss, long long q_sh,
+                                   int Dv, long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
                                    long long o_sb, long long o_ss, long long o_sh,
@@ -674,11 +704,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.scale_log2 = scale * 1.4426950408889634f;
   p.causal = causal; p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 192 && Dv == 128) return (int)launch<192, 128>(p, B, dtype, s);
+  if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 64: return (int)launch<64>(p, B, dtype, s);
-    case 112: return (int)launch<112>(p, B, dtype, s);
-    case 128: return (int)launch<128>(p, B, dtype, s);
-    case 256: return (int)launch<256>(p, B, dtype, s);
+    case 64: return (int)launch<64, 64>(p, B, dtype, s);
+    case 112: return (int)launch<112, 112>(p, B, dtype, s);
+    case 128: return (int)launch<128, 128>(p, B, dtype, s);
+    case 256: return (int)launch<256, 256>(p, B, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,7 +18,11 @@ raises.  bfloat16 runs the tensor-core kernel, which copies 16 bytes at a
 time, so its inputs need 16-byte-aligned data and batch, row and head
 strides that are multiples of 8 elements (``_check`` raises otherwise;
 nothing is copied); float32 runs the CUDA-core kernel, which takes any
-strides.  The backward follows the same rule for q, k, v and do: bfloat16
+strides.  The forward takes the head-dim pairs ``FWD_HEAD_DIMS``: v as
+wide as q and k, or q/k 192 and v 128 (MLA); any other pair raises before
+launch.  The backward takes dv = d only (``FlashAttention`` raises for
+dv != d: MoE/MLA training is ROADMAP A15b).  It follows the same rule for
+q, k, v and do: bfloat16
 at head dim 64, 112 or 128 runs tensor-core kernels that copy 16 bytes at a
 time, and float32 (and bfloat16 at 256) CUDA-core kernels that take any
 strides.  Each function counts
@@ -36,6 +40,9 @@ import math
 import torch
 
 HEAD_DIMS = (64, 112, 128, 256)
+# (d of q and k, dv of v and o) the forward kernel takes: dv = d, and
+# DeepSeek-V3's MLA prefill (128 nope + 64 rope for q/k, 128 for v).
+FWD_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 BWD_TC_HEAD_DIMS = (64, 112, 128)   # bf16 backward on the tensor cores
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,7 +112,7 @@ flash_attention_plain.calls = 0
 def bind(lib: ctypes.CDLL):
     """The C entry point ``flash_attention_fwd`` of a built library, typed."""
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
@@ -122,6 +129,10 @@ def _kernel_fn():
 
 def _check(q, k, v):
     _check_qkv(q, k, v)
+    pair = (q.shape[3], v.shape[3])
+    if pair not in FWD_HEAD_DIMS:
+        raise ValueError(f"head dims (d {pair[0]}, dv {pair[1]}) not supported by the "
+                         f"kernel (takes {FWD_HEAD_DIMS})")
     # bf16: cp.async moves 16 bytes (8 elements), so every row of every head
     # must start on a 16-byte boundary.  A quick test of all three first (it
     # runs on every call); the one that names the fault only when it fails.
@@ -134,15 +145,12 @@ def _check_qkv(q, k, v):
         raise ValueError(f"q, k, v must be (B,S,H,d); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, Hq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
-        raise ValueError(f"k, v must be (B,Sk,Hkv,{d}) like q {tuple(q.shape)}; "
-                         f"got {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"k must be (B,Sk,Hkv,{d}) like q {tuple(q.shape)} and v "
+                         f"(B,Sk,Hkv,dv); got {tuple(k.shape)}, {tuple(v.shape)}")
     Hkv = k.shape[2]
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel "
-                         f"(takes {HEAD_DIMS})")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -173,12 +181,14 @@ def _check_bf16_alignment(**tensors):
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
-    """Attention forward, (o, lse).  q: (B,Sq,Hq,d); k, v: (B,Sk,Hkv,d).
+    """Attention forward, (o (B,Sq,Hq,dv), lse).  q: (B,Sq,Hq,d); k:
+    (B,Sk,Hkv,d); v: (B,Sk,Hkv,dv).
 
-    On CUDA tensors this launches the Hopper kernel (head dim 64, 112, 128
-    or 256; float32 or bfloat16; last dim contiguous; for bfloat16, 16-byte
-    aligned data and strides in multiples of 8) on the current stream.  CPU
-    tensors go to :func:`flash_attention_plain`.  Any other device raises."""
+    On CUDA tensors this launches the Hopper kernel ((d, dv) in
+    ``FWD_HEAD_DIMS``: dv = d in 64, 112, 128, 256, or 192 and 128; float32
+    or bfloat16; last dim contiguous; for bfloat16, 16-byte aligned data and
+    strides in multiples of 8) on the current stream.  CPU tensors go to
+    :func:`flash_attention_plain`.  Any other device raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
@@ -195,13 +205,13 @@ def launch(fn, q, k, v, *, causal, window, scale):
     point ``flash_attention_fwd``, on checked CUDA tensors; raise if the
     launch fails."""
     B, Sq, Hq, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = torch.empty((B, Sq, Hq, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                B, Sq, Sk, Hq, Hkv, d,
+                B, Sq, Sk, Hq, Hkv, d, dv,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                 float(scale), int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
@@ -293,6 +303,11 @@ def _bwd_kernel_fn():
 
 def _check_bwd(q, k, v, o, lse, do):
     _check_qkv(q, k, v)
+    if v.shape[3] != q.shape[3]:
+        raise NotImplementedError(_NO_BWD_DV.format(q.shape[3], v.shape[3]))
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not supported by the backward kernel "
+                         f"(takes {HEAD_DIMS})")
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q {tuple(q.shape)} {q.dtype} on {q.device}; "
@@ -358,14 +373,21 @@ def launch_bwd(fn, q, k, v, o, lse, do, *, causal, window, scale):
 flash_attention_bwd.launches = 0
 
 
+_NO_BWD_DV = ("attention backward with d {} != dv {}: the backward kernel takes dv = d "
+              "only; MoE/MLA training is ROADMAP A15b")
+
+
 class FlashAttention(torch.autograd.Function):
     """softmax(scale q k^T) v with a gradient: the forward runs
     :func:`flash_attention_fwd` and keeps (q, k, v, o, lse); the backward
     runs :func:`flash_attention_bwd` on them.  Both dispatch by device, so
-    CPU tensors take the plain versions and CUDA tensors the kernels."""
+    CPU tensors take the plain versions and CUDA tensors the kernels.  v
+    must be as wide as q and k (dv != d raises, on every device)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(_NO_BWD_DV.format(q.shape[-1], v.shape[-1]))
         o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, scale)

@@ -4,12 +4,19 @@
         --batch 4 --prompt-len 512 --gen 32
 
 Every arch the port registers serves (``repro_torch.configs.base.ARCHS``:
-the dense decoders, zamba2-7b and rwkv6-1.6b).
+the dense decoders, zamba2-7b, rwkv6-1.6b, and the MoE models
+moonshot-v1-16b-a3b and deepseek-v3-671b).  deepseek-v3-671b's 671.7e9
+parameters do not fit one card; ``--layers 4`` keeps every width and its 3
+dense layers and 1 MoE layer (15.8e9 parameters):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --full \
+        --layers 4 --batch 4 --prompt-len 512 --gen 32
 
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain path) and ``--seed`` (weights and prompts).  The
-reduced configs (the default without ``--full``) run on the CPU only: the
-card refuses them up front.
+``cpu`` runs the plain path), ``--seed`` (weights and prompts) and
+``--layers`` (cut the depth, keeping every width).  The reduced configs
+(the default without ``--full``) run on the CPU only: the card refuses them
+up front.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=64)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the config's)")
     args = ap.parse_args(argv)
 
     from repro_torch import configs
@@ -39,6 +48,8 @@ def main(argv=None) -> None:
 
     device = launch_device(args.device, reduced=not args.full)
     cfg = configs.get(args.arch) if args.full else configs.get_reduced(args.arch)
+    if args.layers:
+        cfg = cfg.with_(n_layers=args.layers)
     model = build(cfg, device=device, seed=args.seed)
     params = model.init()
     engine = ServeEngine(model, params, max_len=args.prompt_len + args.gen + 1)

@@ -2,8 +2,8 @@
 opts=None)``.
 
 The torch twin of ``repro.models.api``, dispatched by family as the
-reference dispatches (dense decoder, hybrid Mamba-2 + shared attention,
-RWKV-6):
+reference dispatches (dense and MoE / MLA decoders, hybrid Mamba-2 + shared
+attention, RWKV-6):
 
     init() -> params (an nn.Module, weights drawn on ``device`` from ``seed``)
     load(state) -> params (weights from ``repro_torch.convert``)
@@ -12,8 +12,11 @@ RWKV-6):
     prefill(params, cache, tokens (B,S)) -> (cache, logits (B,V))
     decode_step(params, cache, tokens (B,)) -> (cache, logits (B,V))
 
-``loss`` is ported for all three families; its backward runs the flash
-attention, SSD-scan and WKV6 backward kernels on the card.
+``loss`` is ported for the dense decoder, the hybrid and RWKV-6; its
+backward runs the flash attention, SSD-scan and WKV6 backward kernels on the
+card.  The MoE / MLA decoders (moonshot-v1-16b-a3b, deepseek-v3-671b) serve
+only: their ``loss``, ``input_specs`` and ``dummy_batch`` raise, naming
+ROADMAP A15b.
 
 ``device`` defaults to ``cuda``; with no card the build raises unless the
 caller asks for ``device="cpu"``.
@@ -46,8 +49,10 @@ class Family:
     loss) and serving steps."""
     module: type                  # module(cfg, device, dtype), with reset_parameters(gen)
     init_cache: Callable          # (cfg, batch, max_len, *, device, dtype) -> cache
-    prefill: Callable             # (params, cache, tokens, cfg) -> (cache, logits)
-    decode_step: Callable         # (params, cache, tokens, cfg) -> (cache, logits)
+    prefill: Callable             # (params, cache, tokens, cfg, opts) -> (cache, logits)
+    decode_step: Callable         # (params, cache, tokens, cfg, opts) -> (cache, logits)
+    # opts is the Model's ModelOpts; of the serving steps only the decoder's
+    # MoE layers read it (moe_token_chunk).
 
 
 DECODER = Family(transformer.Decoder, transformer.decoder_init_cache,
@@ -57,8 +62,9 @@ HYBRID = Family(hybrid.Hybrid, hybrid.hybrid_init_cache,
 RWKV = Family(rwkv_model.RWKV, rwkv_model.rwkv_init_cache,
               rwkv_model.rwkv_prefill, rwkv_model.rwkv_decode_step)
 
-_LATER = (("n_experts", "MoE: ROADMAP A15"), ("mla", "MLA: ROADMAP A15"),
-          ("mtp_depth", "MTP: ROADMAP A15"), ("enc_layers", "encoder-decoder: ROADMAP A18"))
+_LATER = (("enc_layers", "encoder-decoder: ROADMAP A18"),)
+# Families that serve but do not train yet.
+_SERVE_ONLY = (("n_experts", "MoE"), ("mla", "MLA"), ("mtp_depth", "MTP"))
 
 
 def family_of(cfg: ModelConfig) -> Family:
@@ -73,10 +79,10 @@ def family_of(cfg: ModelConfig) -> Family:
         return HYBRID
     if cfg.family == "ssm" and cfg.rwkv:
         return RWKV
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DECODER
     raise NotImplementedError(f"{cfg.name}: not ported yet (family {cfg.family!r}: "
-                              f"ROADMAP A15-A18)")
+                              f"ROADMAP A18)")
 
 
 @dataclass(frozen=True)
@@ -90,6 +96,13 @@ class Model:
     @property
     def family(self) -> Family:
         return family_of(self.cfg)
+
+    def _trains(self) -> None:
+        """Raise for a config whose training is not ported yet."""
+        for flag, what in _SERVE_ONLY:
+            if getattr(self.cfg, flag):
+                raise NotImplementedError(f"{self.cfg.name}: {what} serves in the port but "
+                                          f"does not train yet (ROADMAP A15b)")
 
     def init(self):
         gen = torch.Generator(device=self.device)
@@ -115,11 +128,13 @@ class Model:
     def loss(self, params, batch: dict):
         """(scalar loss, metrics) of a batch {"tokens": (B, S)}; differentiable.
         Called through the module (its ``forward``), so hooks on it run."""
+        self._trains()
         return params(batch, self.opts)
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         """Allocation-free stand-ins (tensors on the ``meta`` device) for every
         model input of a (shape x step-kind) cell; tokens are int64."""
+        self._trains()
         B, S = shape.global_batch, shape.seq_len
         dims = (B,) if shape.kind == "decode" else (B, S)
         return {"tokens": torch.empty(dims, dtype=torch.long, device="meta")}
@@ -127,6 +142,7 @@ class Model:
     def dummy_batch(self, shape: ShapeConfig, gen: torch.Generator | None = None) -> dict:
         """A batch of random token ids in [0, vocab) on the model's device,
         from ``gen`` (seed 0 when not given)."""
+        self._trains()
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
         return {k: torch.randint(0, self.cfg.vocab_size, spec.shape, generator=gen,
@@ -139,11 +155,11 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, cache: dict, tokens: torch.Tensor):
-        return self.family.prefill(params, cache, tokens, self.cfg)
+        return self.family.prefill(params, cache, tokens, self.cfg, self.opts)
 
     @torch.no_grad()
     def decode_step(self, params, cache: dict, tokens: torch.Tensor):
-        return self.family.decode_step(params, cache, tokens, self.cfg)
+        return self.family.decode_step(params, cache, tokens, self.cfg, self.opts)
 
 
 def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0,

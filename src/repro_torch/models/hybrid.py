@@ -144,7 +144,7 @@ def _shared_block_decode(sp: Block, x, cfg: ModelConfig, k_cache, v_cache, pos: 
     return x + nn.ffn_apply(sp.mlp.wi, sp.mlp.wo, h, cfg.act)
 
 
-def hybrid_prefill(params: Hybrid, cache: dict, tokens, cfg: ModelConfig):
+def hybrid_prefill(params: Hybrid, cache: dict, tokens, cfg: ModelConfig, opts=None):
     """Prefill from a full prompt (B, S): every SSM layer's scan starts from
     zero state, as in the reference.  Returns (cache, logits of the last
     position (B, V))."""
@@ -166,7 +166,7 @@ def hybrid_prefill(params: Hybrid, cache: dict, tokens, cfg: ModelConfig):
     return cache, h @ params.head
 
 
-def hybrid_decode_step(params: Hybrid, cache: dict, tokens, cfg: ModelConfig):
+def hybrid_decode_step(params: Hybrid, cache: dict, tokens, cfg: ModelConfig, opts=None):
     """tokens: (B,) current token ids.  Returns (cache, logits (B,V))."""
     pos = cache["pos"]
     x = nn.embed_lookup(params.emb, tokens[:, None])

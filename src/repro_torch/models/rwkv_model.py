@@ -136,7 +136,7 @@ def _stack_pass(params: RWKV, cache: dict, x, cfg: ModelConfig):
     return x
 
 
-def rwkv_prefill(params: RWKV, cache: dict, tokens, cfg: ModelConfig):
+def rwkv_prefill(params: RWKV, cache: dict, tokens, cfg: ModelConfig, opts=None):
     """Prefill from a prompt (B, S).  Returns (cache, logits (B, V))."""
     x = nn.layernorm(nn.embed_lookup(params.emb, tokens), params.ln0_g, params.ln0_b,
                      cfg.norm_eps)
@@ -146,7 +146,7 @@ def rwkv_prefill(params: RWKV, cache: dict, tokens, cfg: ModelConfig):
     return cache, h @ params.head
 
 
-def rwkv_decode_step(params: RWKV, cache: dict, tokens, cfg: ModelConfig):
+def rwkv_decode_step(params: RWKV, cache: dict, tokens, cfg: ModelConfig, opts=None):
     """tokens: (B,) current token ids.  Returns (cache, logits (B, V))."""
     x = nn.layernorm(nn.embed_lookup(params.emb, tokens[:, None]), params.ln0_g,
                      params.ln0_b, cfg.norm_eps)

@@ -1,17 +1,26 @@
-"""Decoder-only transformer LM, dense branch: the torch twin of
-``repro.models.transformer`` for training (forward + loss) and serving
-(prefill + decode).
+"""Decoder-only transformer LM: the torch twin of ``repro.models.transformer``
+for training (forward + loss; the dense branch) and serving (prefill +
+decode; the dense branch and the MoE / MLA branches of the reference).
 
 Parameters live in ``nn.Module``s with the reference's names and (in, out)
 layouts; where the reference stacks layers on a leading axis and scans,
 the port keeps an ``nn.ModuleList`` and loops (``repro_torch.convert``
-unstacks).  MoE, MLA, MTP and the vision frontend are later slices.
+unstacks).  A dense model has one group, ``layers``.  A MoE model
+(``cfg.n_experts``) has ``dense_layers`` (its first ``n_dense_layers``,
+with the dense FFN) and ``moe_layers`` (with :class:`~repro_torch.models.moe.MoE`
+in place of the FFN), walked in that order; under ``cfg.mla`` every block's
+attention is :class:`~repro_torch.models.mla.MLA`.  The multi-token
+prediction block ``mtp`` (``cfg.mtp_depth``) is built and carried across
+but, as in the reference, unused when serving.  Training of the MoE / MLA
+branches is ROADMAP A15b; the vision frontend is A18.
 
-The KV cache is ``{"pos": int, "layers": {"k": (L,B,S,Hkv,hd), "v": ...}}``,
-allocated once by :func:`decoder_init_cache` and written IN PLACE by prefill
-and decode (the reference donates the cache buffer to its jitted step and
-gets a new one back; here the same buffer is updated and returned).
-Sliding-window models keep a ring buffer of at most ``window`` slots.
+The KV cache is ``{"pos": int, <group>: {"k": (L,B,S,Hkv,hd), "v": ...}}``
+for each layer group (under MLA ``{"c": (L,B,S,kv_lora_rank), "pe":
+(L,B,S,qk_rope_dim)}``: only the latents), allocated once by
+:func:`decoder_init_cache` and written IN PLACE by prefill and decode (the
+reference donates the cache buffer to its jitted step and gets a new one
+back; here the same buffer is updated and returned).  Sliding-window models
+keep a ring buffer of at most ``window`` slots.
 
 Training runs through the modules (``Decoder.forward`` is the loss, each
 ``Block.forward`` a layer), so that hooks on them (FSDP2's, under ZeRO-3)
@@ -34,20 +43,24 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.mla import MLA, mla_decode, mla_prefill
+from repro_torch.models.moe import MoE, moe_apply
 
 
 @dataclass(frozen=True)
 class ModelOpts:
-    """Runtime knobs (not architecture): the two of the reference's that act
-    in the port.  ``remat`` is "none" or "full" (each block's activations are
-    recomputed in the backward, by ``torch.utils.checkpoint``);
-    ``loss_chunk`` is the sequence chunk of the cross-entropy (0: one piece).
-    The reference's ``attn_schedule`` has no twin: the attention kernels
-    visit only the tiles of the causal/window band, which is what its
-    "triangle" schedule buys.  Its MoE and MTP knobs come with those
-    families (ROADMAP A15)."""
+    """Runtime knobs (not architecture): the three of the reference's that
+    act in the port.  ``remat`` is "none" or "full" (each block's activations
+    are recomputed in the backward, by ``torch.utils.checkpoint``);
+    ``loss_chunk`` is the sequence chunk of the cross-entropy (0: one piece);
+    ``moe_token_chunk`` is the MoE dispatch chunk in tokens.  The reference's
+    ``attn_schedule`` has no twin: the attention kernels visit only the
+    tiles of the causal/window band, which is what its "triangle" schedule
+    buys.  Its MTP and aux-loss knobs come with MoE / MLA training (ROADMAP
+    A15b)."""
     remat: str = "none"              # none | full
     loss_chunk: int = 2048
+    moe_token_chunk: int = 65536
 
 
 class Attention(tnn.Module):
@@ -77,11 +90,15 @@ class Attention(tnn.Module):
 
 
 class FFN(tnn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    """wi (D, d_ff or 2 d_ff when gated), wo (d_ff, D); ``d_ff`` defaults to
+    the config's (the MoE's shared experts pass their own)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype, d_ff: int | None = None):
         super().__init__()
-        in_w = 2 * cfg.d_ff if cfg.act in ("swiglu", "geglu") else cfg.d_ff
+        d_ff = d_ff or cfg.d_ff
+        in_w = 2 * d_ff if cfg.act in ("swiglu", "geglu") else d_ff
         self.wi = nn.param(cfg.d_model, in_w, device=device, dtype=dtype)
-        self.wo = nn.param(cfg.d_ff, cfg.d_model, device=device, dtype=dtype)
+        self.wo = nn.param(d_ff, cfg.d_model, device=device, dtype=dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.dense_init_(self.wi, gen)
@@ -89,20 +106,25 @@ class FFN(tnn.Module):
 
 
 class Block(tnn.Module):
-    """Pre-norm residual block: x + attn(rmsnorm(x)), then x + mlp(rmsnorm(x))."""
+    """Pre-norm residual block: x + attn(rmsnorm(x)), then x + mlp(rmsnorm(x))
+    (``moe`` in place of ``mlp`` when ``kind == "moe"``; ``attn`` is MLA
+    under ``cfg.mla``)."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype, kind: str = "dense"):
         super().__init__()
         self.ln1 = nn.param(cfg.d_model, device=device, dtype=dtype)
         self.ln2 = nn.param(cfg.d_model, device=device, dtype=dtype)
-        self.attn = Attention(cfg, device, dtype)
-        self.mlp = FFN(cfg, device, dtype)
+        self.attn = (MLA if cfg.mla else Attention)(cfg, device, dtype)
+        if kind == "moe":
+            self.moe = MoE(cfg, device, dtype)
+        else:
+            self.mlp = FFN(cfg, device, dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.ln1.zero_()
         self.ln2.zero_()
         self.attn.reset_parameters(gen)
-        self.mlp.reset_parameters(gen)
+        (self.moe if hasattr(self, "moe") else self.mlp).reset_parameters(gen)
 
     def forward(self, x, cfg: ModelConfig, positions, remat: bool = False,
                 tp: nn.TP | None = None):
@@ -113,8 +135,39 @@ class Block(tnn.Module):
         return block_apply(self, x, cfg, positions, tp)
 
 
+class MTP(tnn.Module):
+    """The multi-token-prediction block: proj (2D, D), ln_h, ln_e (D,) and
+    one dense block.  Carried across with the weights; serving does not run
+    it (its loss is ROADMAP A15b)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        D = cfg.d_model
+        self.proj = nn.param(2 * D, D, device=device, dtype=dtype)
+        self.ln_h = nn.param(D, device=device, dtype=dtype)
+        self.ln_e = nn.param(D, device=device, dtype=dtype)
+        self.layer = Block(cfg, device, dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn.dense_init_(self.proj, gen)
+        self.ln_h.zero_()
+        self.ln_e.zero_()
+        self.layer.reset_parameters(gen)
+
+
+def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """(name, number of layers) of each stacked layer group, in the order
+    the reference walks them."""
+    if not cfg.n_experts:
+        return [("layers", cfg.n_layers)]
+    dense = [("dense_layers", cfg.n_dense_layers)] if cfg.n_dense_layers else []
+    return dense + [("moe_layers", cfg.n_moe_layers)]
+
+
 class Decoder(tnn.Module):
-    """emb (V, D), ln_f (D,), head (D, V) unless tied, layers[0..L)."""
+    """emb (V, D), ln_f (D,), head (D, V) unless tied, and the layer groups
+    of :func:`layer_groups`: layers[0..L), or dense_layers and moe_layers;
+    mtp when ``cfg.mtp_depth``."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -123,8 +176,12 @@ class Decoder(tnn.Module):
         self.ln_f = nn.param(cfg.d_model, device=device, dtype=dtype)
         if not cfg.tie_embeddings:
             self.head = nn.param(cfg.d_model, cfg.vocab_size, device=device, dtype=dtype)
-        self.layers = tnn.ModuleList(Block(cfg, device, dtype)
-                                     for _ in range(cfg.n_layers))
+        for name, n in layer_groups(cfg):
+            kind = "moe" if name == "moe_layers" else "dense"
+            setattr(self, name, tnn.ModuleList(Block(cfg, device, dtype, kind)
+                                               for _ in range(n)))
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, device, dtype)
         self.tp: nn.TP | None = None          # tensor-parallel group, if split
 
     def forward(self, batch: dict, opts: ModelOpts):
@@ -137,8 +194,11 @@ class Decoder(tnn.Module):
         self.ln_f.zero_()
         if hasattr(self, "head"):
             nn.dense_init_(self.head, gen)
-        for layer in self.layers:
-            layer.reset_parameters(gen)
+        for name, _ in layer_groups(self.cfg):
+            for layer in getattr(self, name):
+                layer.reset_parameters(gen)
+        if hasattr(self, "mtp"):
+            self.mtp.reset_parameters(gen)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         w = self.emb.T if self.cfg.tie_embeddings else self.head
@@ -237,10 +297,19 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 def decoder_init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                        dtype) -> dict:
     S = cache_len(cfg, max_len)
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"pos": 0,
-            "layers": {"k": torch.zeros(shape, device=device, dtype=dtype),
-                       "v": torch.zeros(shape, device=device, dtype=dtype)}}
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    cache: dict = {"pos": 0}
+    for name, n in layer_groups(cfg):
+        if cfg.mla:
+            cache[name] = {"c": zeros(n, batch, S, cfg.kv_lora_rank),
+                           "pe": zeros(n, batch, S, cfg.qk_rope_dim)}
+        else:
+            shape = (n, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+            cache[name] = {"k": zeros(*shape), "v": zeros(*shape)}
+    return cache
 
 
 def ring_write(cache_arr, kv, window: int) -> None:
@@ -256,37 +325,58 @@ def ring_write(cache_arr, kv, window: int) -> None:
     cache_arr[:, idx] = kv[:, S - W:]
 
 
-def decoder_prefill(params: Decoder, cache: dict, tokens, cfg: ModelConfig):
+def ffn_part(lp: Block, h, cfg: ModelConfig, opts: ModelOpts):
+    """The block's FFN: the MoE (its aux loss dropped, as the reference's
+    serving steps drop it) or the dense FFN."""
+    if hasattr(lp, "moe"):
+        return moe_apply(lp.moe, h, cfg, opts.moe_token_chunk)[0]
+    return nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
+
+
+def decoder_prefill(params: Decoder, cache: dict, tokens, cfg: ModelConfig,
+                    opts: ModelOpts | None = None):
     """Prefill the cache from a full prompt (B, S).  Returns (cache, logits of
     the last position (B, V))."""
+    opts = opts or ModelOpts()
     x = nn.embed_lookup(params.emb, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i, lp in enumerate(params.layers):
-        h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        q, k, v = qkv(lp.attn, h, cfg, positions)
-        o = attention(q, k, v, causal=True, window=cfg.sliding_window)
-        x = x + o.reshape(B, S, -1) @ lp.attn.wo
-        ring_write(ck[i], k, cfg.sliding_window)
-        ring_write(cv[i], v, cfg.sliding_window)
-        h = nn.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
+    for name, _ in layer_groups(cfg):
+        c = cache[name]
+        for i, lp in enumerate(getattr(params, name)):
+            h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
+            if cfg.mla:
+                a, c_kv, k_pe = mla_prefill(lp.attn, h, cfg, positions)
+                ring_write(c["c"][i], c_kv, 0)
+                ring_write(c["pe"][i], k_pe, 0)
+            else:
+                q, k, v = qkv(lp.attn, h, cfg, positions)
+                o = attention(q, k, v, causal=True, window=cfg.sliding_window)
+                a = o.reshape(B, S, -1) @ lp.attn.wo
+                ring_write(c["k"][i], k, cfg.sliding_window)
+                ring_write(c["v"][i], v, cfg.sliding_window)
+            x = x + a
+            x = x + ffn_part(lp, nn.rmsnorm(x, lp.ln2, cfg.norm_eps), cfg, opts)
     cache["pos"] = S
     h = nn.rmsnorm(x[:, -1], params.ln_f, cfg.norm_eps)
     return cache, params.logits(h)
 
 
-def decoder_decode_step(params: Decoder, cache: dict, tokens, cfg: ModelConfig):
+def decoder_decode_step(params: Decoder, cache: dict, tokens, cfg: ModelConfig,
+                        opts: ModelOpts | None = None):
     """tokens: (B,) current token ids.  Returns (cache, logits (B,V))."""
+    opts = opts or ModelOpts()
     pos = cache["pos"]
     x = nn.embed_lookup(params.emb, tokens[:, None])
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i, lp in enumerate(params.layers):
-        h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        x = x + attn_decode(lp.attn, h, cfg, ck[i], cv[i], pos)
-        h = nn.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
+    for name, _ in layer_groups(cfg):
+        c = cache[name]
+        for i, lp in enumerate(getattr(params, name)):
+            h = nn.rmsnorm(x, lp.ln1, cfg.norm_eps)
+            if cfg.mla:
+                x = x + mla_decode(lp.attn, h, cfg, c["c"][i], c["pe"][i], pos)
+            else:
+                x = x + attn_decode(lp.attn, h, cfg, c["k"][i], c["v"][i], pos)
+            x = x + ffn_part(lp, nn.rmsnorm(x, lp.ln2, cfg.norm_eps), cfg, opts)
     cache["pos"] = pos + 1
     h = nn.rmsnorm(x[:, 0], params.ln_f, cfg.norm_eps)
     return cache, params.logits(h)

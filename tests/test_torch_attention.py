@@ -43,11 +43,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(seed, B, Sq, Sk, Hq, Hkv, d, dtype):
-    """Same values for both frameworks: f32 numpy draws rounded to dtype."""
+def _inputs(seed, B, Sq, Sk, Hq, Hkv, d, dtype, dv=None):
+    """Same values for both frameworks: f32 numpy draws rounded to dtype; v
+    is ``dv`` wide (d by default)."""
     rng = np.random.default_rng(seed)
     arrs = [rng.normal(0, 1, s).astype(np.float32)
-            for s in ((B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d))]
+            for s in ((B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, dv or d))]
     jx = [jnp.asarray(a, JDT[dtype]) for a in arrs]
     tx = [torch.from_numpy(a).to(TDT[dtype]) for a in arrs]
     return jx, tx
@@ -228,6 +229,37 @@ def test_kernel_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, d, causal, window, pac
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == launches + 1
     po, plse = flash_attention_plain(q, k, v, causal=causal, window=window)
+    o, po = _f32(o.cpu()), _f32(po.cpu())
+    row_rel = np.abs(o - po).max(-1) / np.abs(po).max(-1)
+    assert row_rel.max() <= TOL[dtype]["rtol"], row_rel.max()
+    np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(), atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,v_view", [
+    (2, 256, 256, 8, 8, True, True),      # deepseek-v3 MLA prefill, v a view of (k_nope, v)
+    (2, 300, 300, 8, 8, True, False),     # ragged S
+    (2, 100, 400, 4, 4, True, True),      # Sq < Sk
+    (2, 1, 300, 8, 8, True, False),       # Sq = 1 against Sk = 300
+    (2, 17, 17, 4, 2, True, False),       # S inside one tile, GQA
+    (2, 60, 90, 4, 4, False, False),      # bidirectional, ragged
+])
+def test_kernel_at_192_128_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, causal, v_view, dtype,
+                                                 cuda_device):
+    """The d 192 / dv 128 instantiation (MLA prefill) against the plain version,
+    at the bounds of test_kernel_matches_plain_on_card."""
+    _, (q, k, v) = _inputs(8, B, Sq, Sk, Hq, Hkv, 192, dtype, dv=128)
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    if v_view:                # as MLA hands it over: v = kv[..., 128:] of (B, S, H, 256)
+        v = torch.cat((torch.zeros_like(v), v), dim=-1)[..., 128:]
+        assert not v.is_contiguous()
+    scale = 1.0 / math.sqrt(192)
+    launches = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == launches + 1 and o.shape == (B, Sq, Hq, 128)
+    po, plse = flash_attention_plain(q, k, v, causal=causal, scale=scale)
     o, po = _f32(o.cpu()), _f32(po.cpu())
     row_rel = np.abs(o - po).max(-1) / np.abs(po).max(-1)
     assert row_rel.max() <= TOL[dtype]["rtol"], row_rel.max()

@@ -17,7 +17,8 @@ from repro_torch import configs
 from repro_torch.models import build
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-PORTED = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b"]
+PORTED = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b",
+          "moonshot-v1-16b-a3b", "deepseek-v3-671b"]
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -36,7 +37,8 @@ def test_port_imports_no_jax_and_no_repro():
         "for m in ('analysis', 'core.cluster', 'core.sensitivity', 'core.scheduler',\n"
         "          'core.trace', 'health', 'health.monitor', 'health.flaky', 'obs',\n"
         "          'obs.recorder', 'obs.export', 'obs.report', 'analysis.sanitizer',\n"
-        "          'analysis.tables', 'core.baselines', 'core.simulator'):\n"
+        "          'analysis.tables', 'core.baselines', 'core.simulator', 'models.moe',\n"
+        "          'models.mla', 'configs.moonshot_v1_16b_a3b', 'configs.deepseek_v3_671b'):\n"
         "    assert f'repro_torch.{m}' in mods, (m, mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -44,6 +46,19 @@ def test_port_imports_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    """chip_smoke.py, which drives the port on the card, imports neither jax
+    nor anything of the JAX package (at any level of the file)."""
+    import ast
+
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    assert "repro_torch.models" in names
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, bad
 
 
 def test_build_without_card_raises(monkeypatch):

@@ -1,13 +1,20 @@
 """The port's serving path against the JAX package on the same weights.
 
 Reduced llama2-7b, gemma-2b, gpt2-1.5b, starcoder2-3b, zamba2-7b (hybrid:
-Mamba-2 and a shared attention block) and rwkv6-1.6b are initialised by
-JAX, carried across with ``repro_torch.convert`` and served by both:
-prefill and decode logits must match (f32 at 1e-4 relative, bf16 at 3e-2,
-the bf16 bound of tests/test_kernels.py), greedy tokens must be equal in
-f32, and the port's decode must match its own prefill (rel < 0.08, the
-bound of tests/test_models_smoke.py).
+Mamba-2 and a shared attention block), rwkv6-1.6b, moonshot-v1-16b-a3b (MoE)
+and deepseek-v3-671b (MoE + MLA) are initialised by JAX, carried across
+with ``repro_torch.convert`` and served by both: prefill and decode logits
+must match (f32 at 1e-4 relative, bf16 at 3e-2, the bf16 bound of
+tests/test_kernels.py), greedy tokens must be equal in f32, and the port's
+decode must match its own prefill (rel < 0.08, the bound of
+tests/test_models_smoke.py, for the MoE models at its capacity factor 8).
+The MoE models' bf16 logits are compared with the port under the JAX
+model's expert picks: bf16 rounding differs between the frameworks, and a
+near-tie in the router flips on it (tests/test_torch_moe.py, which also
+holds the routers to each other on the same inputs).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +28,11 @@ from repro.serve.engine import ServeEngine as JServeEngine
 from repro.train.checkpoint import CheckpointManager
 from repro_torch import configs
 from repro_torch.convert import params_from_jax_numpy, read_checkpoint
-from repro_torch.models import build
+from repro_torch.models import build, moe
 from repro_torch.serve.engine import ServeEngine
 
-ARCHS = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b"]
+ARCHS = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b",
+         "moonshot-v1-16b-a3b", "deepseek-v3-671b"]
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -68,22 +76,53 @@ def pair():
     return get
 
 
+@contextlib.contextmanager
+def replayed_picks(monkeypatch, on: bool):
+    """With ``on``: JAX functions traced inside record the experts each
+    ``jax.lax.top_k`` of the reference's MoE picks, and the port replays
+    them, call by call (``moe.ROUTE_LOG``)."""
+    if not on:
+        yield
+        return
+    top_k = jax.lax.top_k
+    moe.ROUTE_LOG = log = moe.RouteLog()
+
+    def recording(x, k):
+        gates, eidx = top_k(x, k)
+        jax.debug.callback(lambda e: log.replay.append(torch.from_numpy(np.array(e)).long()),
+                           eidx, ordered=True)
+        return gates, eidx
+
+    monkeypatch.setattr(jax.lax, "top_k", recording)
+    try:
+        yield
+    finally:
+        moe.ROUTE_LOG = None
+        monkeypatch.setattr(jax.lax, "top_k", top_k)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_decode_logits_match_jax(arch, dtype, pair):
+def test_prefill_decode_logits_match_jax(arch, dtype, pair, monkeypatch):
     cfg, jm, jp, tm, tp = pair(arch, dtype)
     toks = _tokens(cfg.vocab_size, 2, 24)
-    jc, jl = jax.jit(jm.prefill)(jp, jm.init_cache(2, 48),
-                                 {"tokens": jnp.asarray(toks)})
-    tc, tl = tm.prefill(tp, tm.init_cache(2, 48), torch.from_numpy(toks).long())
-    assert tl.shape == (2, cfg.vocab_size)
-    assert _rel(tl.float(), _np(jl)) < TOL[dtype]
-    nxt = np.argmax(_np(jl), -1).astype(np.int32)
-    for _ in range(3):
-        jc, jl = jax.jit(jm.decode_step)(jp, jc, jnp.asarray(nxt))
-        tc, tl = tm.decode_step(tp, tc, torch.from_numpy(nxt).long())
+    with replayed_picks(monkeypatch, bool(cfg.n_experts) and dtype == "bfloat16"):
+        # fresh functions, traced here (so a recording top_k is in them)
+        jc, jl = jax.jit(lambda *a: jm.prefill(*a))(jp, jm.init_cache(2, 48),
+                                                    {"tokens": jnp.asarray(toks)})
+        jax.effects_barrier()
+        tc, tl = tm.prefill(tp, tm.init_cache(2, 48), torch.from_numpy(toks).long())
+        assert tl.shape == (2, cfg.vocab_size)
         assert _rel(tl.float(), _np(jl)) < TOL[dtype]
         nxt = np.argmax(_np(jl), -1).astype(np.int32)
+        step = jax.jit(lambda *a: jm.decode_step(*a))
+        for _ in range(3):
+            jc, jl = step(jp, jc, jnp.asarray(nxt))
+            jax.effects_barrier()
+            tc, tl = tm.decode_step(tp, tc, torch.from_numpy(nxt).long())
+            assert _rel(tl.float(), _np(jl)) < TOL[dtype]
+            nxt = np.argmax(_np(jl), -1).astype(np.int32)
+        assert moe.ROUTE_LOG is None or not moe.ROUTE_LOG.replay
     assert tc["pos"] == int(jc["pos"]) == 27
 
 
@@ -101,14 +140,34 @@ def test_greedy_tokens_equal_jax(arch, pair):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_prefill(arch, pair):
-    """prefill(t[:k]) + decode(t[k]) equals prefill(t[:k+1]) in the port."""
+    """prefill(t[:k]) + decode(t[k]) equals prefill(t[:k+1]) in the port.  A
+    MoE model runs at capacity factor 8, as tests/test_models_smoke.py (token
+    dropping depends on the sequence length by design), and the cache path
+    under the experts the parallel path picked: a near-tie flips on the bf16
+    rounding that separates the two paths (tests/test_torch_moe.py)."""
     cfg, _, _, tm, tp = pair(arch, "bfloat16")
+    if cfg.n_experts:
+        tm = build(tm.cfg.with_(capacity_factor=8.0), device="cpu")
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 16, seed=2)).long()
     k = toks.shape[1] - 1
-    cache, _ = tm.prefill(tp, tm.init_cache(2, 32), toks[:, :k])
-    _, dec = tm.decode_step(tp, cache, toks[:, k])
-    _, par = tm.prefill(tp, tm.init_cache(2, 32), toks)
+    try:
+        moe.ROUTE_LOG = par_log = moe.RouteLog()
+        _, par = tm.prefill(tp, tm.init_cache(2, 32), toks)
+        moe.ROUTE_LOG = moe.RouteLog(split_picks(par_log.seen, 2, k))
+        cache, _ = tm.prefill(tp, tm.init_cache(2, 32), toks[:, :k])
+        _, dec = tm.decode_step(tp, cache, toks[:, k])
+        assert not moe.ROUTE_LOG.replay
+    finally:
+        moe.ROUTE_LOG = None
     assert _rel(dec.float(), par.float()) < 0.08
+
+
+def split_picks(seen, B: int, k: int) -> list[torch.Tensor]:
+    """The picks a prefill of k + 1 tokens made (one dispatch chunk a layer),
+    as a prefill of its first k tokens and a decode of token k make them, in
+    call order."""
+    picks = [eidx.view(B, k + 1, -1) for _, _, eidx in seen]
+    return [e[:, :k].reshape(B * k, -1) for e in picks] + [e[:, k] for e in picks]
 
 
 def test_sliding_window_ring_cache(pair):
@@ -293,3 +352,52 @@ def test_ssm_families_on_card_match_cpu(arch, dtype, cuda_device):
         cg, lg = gpu.decode_step(pg, cg, nxt.to(cuda_device))
         assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
         nxt = lc.argmax(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_families_on_card_match_cpu(arch, dtype, cuda_device):
+    """Cut MoE models (1 dense + 1 MoE layer, 8 experts top-2; deepseek's MLA
+    at its full per-head dims, so the d 192 / dv 128 kernel runs) on the card
+    and on the CPU: the CPU replays the card's expert picks (a near-tie flips
+    on bf16 rounding), logits agree at f32 1e-4 / bf16 3e-2, and the CPU's
+    router picks the card's experts on the card's own inputs."""
+    cut = dict(n_layers=2, n_dense_layers=1, d_model=256, n_heads=2, n_kv_heads=2, d_ff=512,
+               n_experts=8, top_k=2, n_shared_experts=1, moe_d_ff=128)
+    if arch == "deepseek-v3-671b":
+        cut.update(q_lora_rank=64, kv_lora_rank=32)
+    cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
+    cpu = build(cfg, device="cpu")
+    gpu = build(cfg, device=cuda_device)
+    pc = cpu.init()
+    pg = gpu.load({k: v.to(cuda_device) for k, v in pc.state_dict().items()})
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 100)).long()
+    card = moe.RouteLog()
+
+    def both(card_step, cpu_step):
+        """The card's step (its picks recorded), then the CPU's (replaying them)."""
+        n = len(card.seen)
+        moe.ROUTE_LOG = card
+        got = card_step()
+        moe.ROUTE_LOG = moe.RouteLog([e for _, _, e in card.seen[n:]])
+        return got, cpu_step()
+
+    try:
+        (cg, lg), (cc, lc) = both(lambda: gpu.prefill(pg, gpu.init_cache(2, 104),
+                                                      toks.to(cuda_device)),
+                                  lambda: cpu.prefill(pc, cpu.init_cache(2, 104), toks))
+        assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
+        for _ in range(3):
+            nxt = lc.argmax(-1)
+            (cg, lg), (cc, lc) = both(lambda: gpu.decode_step(pg, cg, nxt.to(cuda_device)),
+                                      lambda: cpu.decode_step(pc, cc, nxt))
+            assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
+    finally:
+        moe.ROUTE_LOG = None
+    router = pc.moe_layers[0].moe.router
+    with torch.no_grad():
+        for xg, _, eg in card.seen:
+            _, _, again = moe.route(router, xg.cpu(), cfg.top_k)
+            np.testing.assert_array_equal(again.sort(-1).values.numpy(),
+                                          eg.cpu().sort(-1).values.numpy())

@@ -14,7 +14,7 @@ every head dim), builds all copies with nvcc at once, checks each against
 limits of chip_smoke.py), and times each by CUDA events at the serving
 shapes of each head dim, in two passes (variants in order, then reversed).
 
-Prints one JSON line per variant (ptxas registers and spills per head dim,
+Prints one JSON line per variant (ptxas registers and spills per head-dim pair,
 shared memory per block), one per (shape, variant), then the card's name and
 power limit.  Exits nonzero if a build fails or a variant disagrees.
 """
@@ -78,14 +78,14 @@ def build_variants(source: Path, variants, out: Path) -> dict:
         tag = "w{}_mt{}_bn{}".format(*key)
         lib = ctypes.CDLL(str(out / f"{tag}.so"))
         smem = lib.flash_attention_fwd_smem_bytes
-        smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
         ptxas, d = {}, None
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
-                m = re.search(r"flash_fwd_bf16_kernelILi(\d+)EE", ln)
-                d = int(m.group(1)) if m else None
+                m = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELi(\d+)EE", ln)
+                d = f"{m.group(1)}/{m.group(2)}" if m else None
                 if d:
-                    ptxas[d] = {"smem_bytes": smem(d, 1)}
+                    ptxas[d] = {"smem_bytes": smem(int(m.group(1)), int(m.group(2)), 1)}
             elif d and "spill stores" in ln:
                 ptxas[d]["spill_store_bytes"] = int(re.search(r"(\d+) bytes spill stores",
                                                               ln).group(1))
