@@ -74,12 +74,15 @@ exits nonzero without printing a result:
             on the same inputs, max|Δ| / max|plain| of each at f32 2e-4 and
             bf16 3e-2, at the llama2-7b and gpt2-1.5b train shapes and the
             profile phase's gpt2-1.5b shape (b 16 x s 1024), ragged S,
-            Sq < Sk, a window, GQA 64:8 and every head dim; kernel ms by
-            CUDA-graph replay (eager beside it), plain ms, the bound (5
-            products a pair, 10 d operations, against the bytes of q, k, v,
-            o, do, dq, dk, dv, lse and delta) and SDPA's backward
-            (torch.autograd.grad of its output with the same do) as
-            library_ms
+            Sq < Sk, a window, GQA 64:8 and every head dim, and the d 192 /
+            dv 128 instantiation (MLA) at deepseek-v3-671b's train shape (B 4,
+            S 512, 128:128 heads, v a view of the (B,S,H,256) buffer) in bf16
+            and f32, ragged S = 300 and Sq < Sk; kernel ms by CUDA-graph
+            replay (eager beside it), plain ms, the bound (5 products a pair,
+            6 d + 4 dv operations, against the bytes of q, k, v, o, do, dq,
+            dk, dv, lse and delta) and SDPA's backward (torch.autograd.grad
+            of its output with the same do) as library_ms ("none" where SDPA
+            refuses dv != d)
   ssd_bwd_kernels, wkv6_bwd_kernels  the SSD-scan and WKV6 backward kernels
             against their plain explicit-chunked versions on the same inputs,
             at the train paths' shapes (zamba2-7b: B 4, S 512, 112 heads, x,
@@ -107,7 +110,12 @@ exits nonzero without printing a result:
             batches (batch 2, seq 100), as is, with ga_steps=2, with gc,
             and through compile_train_step on a one-rank NCCL group under
             ZeRO-Offload (moments in pinned host memory, checked) and ZeRO-3
-            (FSDP2 around the kernels' autograd functions), in f32 (losses rel 1e-4, every step-1 gradient rel 2e-4) and in
+            (FSDP2 around the kernels' autograd functions); the small
+            moonshot and deepseek (the d 192 / dv 128 backward) as is, with
+            ga_steps=2 and with gc (their plans across a mesh are ROADMAP
+            A14b), the card under the CPU's expert picks and the routers held
+            to each other on step 1's inputs as in reference;
+            in f32 (losses rel 1e-4, every step-1 gradient rel 2e-4) and in
             bf16, which runs the backward's tensor-core flash kernels (losses
             3e-2, gradients 5e-2; for zamba2 and rwkv6 each gradient within
             5e-2 plus twice the CPU's own bf16 error on that leaf, its
@@ -122,10 +130,17 @@ exits nonzero without printing a result:
             forward 2 x 13 x 3, backward 13 x 3), gpt2-1.5b and rwkv6-1.6b
             through launch.train.train with its f32 AdamW (gpt2: flash
             forward and backward 48 x 3; rwkv6: WKV6 forward and backward
-            24 x 3); 0 plain calls; step ms, tokens/s, peak memory; then one
-            llama2-7b, one zamba2-7b and one rwkv6-1.6b step under
-            torch.profiler (the port kernels' shares of busy time, idle
-            share), and for llama2-7b and zamba2-7b a warm-up round and
+            24 x 3); moonshot-v1-16b-a3b cut to 10 layers (1 dense, 9 MoE of
+            64 experts) and deepseek-v3-671b cut to its 3 dense layers and
+            the MTP block, like llama2-7b (GC, bf16 moments; moonshot: flash
+            forward 2 x 10 x 3, backward 10 x 3; deepseek: forward (2 x 3 +
+            1) x 3 and backward 4 x 3, all at d 192 / dv 128), each first
+            running step 1's forward + backward twice (loss, metrics and
+            every gradient bit-equal) and reporting each step's ce, aux and
+            mtp; 0 plain calls; step ms, tokens/s, peak memory; then one
+            llama2-7b, one zamba2-7b, one rwkv6-1.6b and one step of each MoE
+            path under torch.profiler (the port kernels' shares of busy time,
+            idle share), and for the make_train_step paths a warm-up round and
             SPLIT_ROUNDS more of each timed in two halves (medians):
             forward + backward, then the optimizer update
   train_offload  llama2-7b at full width, bf16, batch 4, seq 512, through
@@ -197,8 +212,9 @@ exits nonzero without printing a result:
             violation, a trace that does not validate, a measure asked for a
             multi-card plan or a wrong launch count
 
-Then the kernel summary line (the forward's d 192 / dv 128 instantiation
-on a line of its own, with the deepseek-v3-671b serve's launches), the
+Then the kernel summary line (the forward's and the backward's d 192 /
+dv 128 instantiations on lines of their own, with the deepseek-v3-671b
+serve's and train's launches), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 f32 matmuls and convolutions run without TF32 (both backends' allow_tf32 set
@@ -345,7 +361,7 @@ def phase_build():
     import ctypes
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS, HEAD_DIMS
+    from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS
     from repro_torch.kernels.ssd_scan import SHAPES
     from repro_torch.kernels.wkv6 import HEAD_DIMS as WKV_DIMS
 
@@ -358,7 +374,7 @@ def phase_build():
         return fn
 
     fa = int_fn("flash_attention_fwd", "flash_attention_fwd_smem_bytes", 3)
-    fb = int_fn("flash_attention_bwd", "flash_attention_bwd_smem_bytes", 3)
+    fb = int_fn("flash_attention_bwd", "flash_attention_bwd_smem_bytes", 4)
     ssd = int_fn("ssd_scan_fwd", "ssd_scan_fwd_smem_bytes", 3)
     ssd_occ = int_fn("ssd_scan_fwd", "ssd_scan_fwd_bf16_blocks_per_sm", 0)
     wkv = int_fn("wkv6_fwd", "wkv6_fwd_smem_bytes", 2)
@@ -372,7 +388,9 @@ def phase_build():
                                                   for d, dv in FWD_HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1),
                                                               ("float32", 0))},
-                     "flash_attention_bwd": {f"{dt} {kern}": {d: fb(d, code, k) for d in HEAD_DIMS}
+                     "flash_attention_bwd": {f"{dt} {kern}": {d if d == dv else f"{d}/{dv}":
+                                                              fb(d, dv, code, k)
+                                                              for d, dv in FWD_HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1), ("float32", 0))
                                              for kern, k in (("dq", 0), ("dkdv", 1))},
                      "ssd_scan_fwd": {dt: {f"P={p},N={n}": ssd(p, n, code) for p, n in SHAPES}
@@ -503,6 +521,8 @@ def phase_kernels():
 # (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype); the first is the
 # llama2-7b train path's shape (batch 4, seq 512), the third gpt2-1.5b's, the
 # fourth the profile phase's (b 16 x s 1024; GA 2 and 4 split it in 8 and 4).
+# d is a pair (d, dv) for MLA (MLA_D), v a view of the (B, S, H, 128 + 128)
+# buffer as in CASES; the first such case is deepseek-v3-671b's train path.
 BWD_CASES = [
     ("llama2-7b train", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16),
     ("llama2-7b train f32", 4, 512, 512, 32, 32, 128, True, 0, torch.float32),
@@ -518,16 +538,24 @@ BWD_CASES = [
     ("gemma-2b MQA d=256", 2, 256, 256, 8, 1, 256, True, 0, torch.bfloat16),
     ("d=256 f32", 1, 200, 200, 4, 2, 256, True, 0, torch.float32),
     ("bidirectional", 2, 256, 256, 8, 8, 128, False, 0, torch.bfloat16),
+    ("deepseek-v3 MLA train d=192 dv=128", 4, 512, 512, 128, 128, MLA_D, True, 0,
+     torch.bfloat16),
+    ("deepseek-v3 MLA train d=192 dv=128 f32", 4, 512, 512, 128, 128, MLA_D, True, 0,
+     torch.float32),
+    ("MLA ragged S=300", 2, 300, 300, 128, 128, MLA_D, True, 0, torch.bfloat16),
+    ("MLA Sq < Sk (128 after 512)", 2, 128, 640, 128, 128, MLA_D, True, 0, torch.bfloat16),
 ]
 
 
-def bwd_bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype):
-    """Attention backward: least time for the 5 products of length d a pair
-    of the band needs (S, dP, dq, dk, dv: 10 d operations), against the bytes
-    of q, o, do, dq, k, v, dk, dv (dtype) and lse, delta (f32)."""
-    flops = 10.0 * B * Hq * d * band_pairs(Sq, Sk, causal, window)
+def bwd_bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv=None):
+    """Attention backward: least time for the 5 products a pair of the band
+    needs (S, dq, dk of length d; dP, dv of length dv: 6 d + 4 dv
+    operations, 10 d at dv = d), against the bytes of q, dq, k, dk (d wide),
+    o, do, v, dv (dv wide; dtype) and lse, delta (f32)."""
+    dv = d if dv is None else dv
+    flops = 2.0 * B * Hq * (3 * d + 2 * dv) * band_pairs(Sq, Sk, causal, window)
     esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * B * d * (4 * Sq * Hq + 4 * Sk * Hkv) + 2 * 4 * B * Hq * Sq
+    nbytes = esize * B * (d + dv) * (2 * Sq * Hq + 2 * Sk * Hkv) + 2 * 4 * B * Hq * Sq
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -541,11 +569,14 @@ def phase_bwd_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, failed = [], []
     for i, (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dt) in enumerate(BWD_CASES):
-        main = i == 0
-        q, do = (torch.randn((B, Sq, Hq, d), generator=gen, device="cuda").to(dt)
-                 for _ in range(2))
-        k, v = (torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
-                for _ in range(2))
+        d, dv = d if isinstance(d, tuple) else (d, d)
+        main = i == 0 or (dv != d and not any(r["dv"] != r["d"] for r in rows))
+        q = torch.randn((B, Sq, Hq, d), generator=gen, device="cuda").to(dt)
+        do = torch.randn((B, Sq, Hq, dv), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, Sk, Hkv, dv), generator=gen, device="cuda").to(dt)
+        if dv != d:
+            v = torch.cat((torch.zeros_like(v), v), dim=-1)[..., dv:]
         kw = dict(causal=causal, window=window)
         o, lse = flash_attention_fwd(q, k, v, **kw)
         args = (q, k, v, o, lse, do)
@@ -574,15 +605,22 @@ def phase_bwd_kernels():
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=Hq != Hkv, **sdpa_kw)
 
-        library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), reps)
-                      - graph_ms(sdpa, reps))
-        bms, by, flops, nbytes = bwd_bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dt)
-        rows.append(dict(case=label, B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, d=d, causal=causal,
-                         window=window, dtype=str(dt).removeprefix("torch."), tol=TOL[dt],
-                         rel_err=errs, max_abs_err=max_abs, ok=ok, kernel_ms=kernel_ms,
-                         kernel_ms_eager=kernel_ms_eager, plain_ms=plain_ms,
-                         library_ms=library_ms, kernel_vs_library=kernel_ms / library_ms,
-                         library="sdpa backward " + ("is_causal" if plain_mask else "attn_mask"),
+        library = "sdpa backward " + ("is_causal" if plain_mask else "attn_mask")
+        try:
+            library_ms = (graph_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), reps)
+                          - graph_ms(sdpa, reps))
+        except RuntimeError as e:    # the yardstick only: SDPA may refuse dv != d
+            if dv == d:
+                raise
+            library_ms, library = None, f"none (SDPA refused d {d} / dv {dv}: {str(e)[:120]})"
+        bms, by, flops, nbytes = bwd_bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dt, dv)
+        rows.append(dict(case=label, B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, d=d, dv=dv,
+                         causal=causal, window=window, dtype=str(dt).removeprefix("torch."),
+                         tol=TOL[dt], rel_err=errs, max_abs_err=max_abs, ok=ok,
+                         kernel_ms=kernel_ms, kernel_ms_eager=kernel_ms_eager, plain_ms=plain_ms,
+                         library_ms=library_ms,
+                         kernel_vs_library=kernel_ms / library_ms if library_ms else None,
+                         library=library, v_view=dv != d,
                          bound_ms=bms, bound_by=by, x_bound=kernel_ms / bms,
                          gflop=flops / 1e9, mbytes=nbytes / 1e6,
                          tflops=flops / kernel_ms / 1e9))
@@ -593,7 +631,7 @@ def phase_bwd_kernels():
     emit("bwd_kernels", kernel="flash_attention_bwd", cases=rows)
     if failed:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {failed}")
-    return rows[0]
+    return rows[0], next(r for r in rows if r["dv"] != r["d"])
 
 
 # (label, B, S, H, P, N, h0, dtype); the first is the serving path's shape
@@ -1136,38 +1174,61 @@ def topk_margin(probs: torch.Tensor, k: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def route_check(card_log, cpu_log, cpu_params, cfg, strict: bool) -> tuple[dict, list[str]]:
-    """The MoE routers of a card run and of the CPU run that replayed its
-    picks: (summary, faults).  Each card call's input is routed again by the
-    CPU's router: a pick that differs is a fault, named with the token's
-    top-k margin.  The CPU run's own top k on its own inputs is compared with
-    the picks it replayed: under ``strict`` (f32, whose noise is ~1e-6) a
-    difference is a fault too; in bf16 it is reported with its margins
-    (rounding noise flips near-ties)."""
+def route_check(first_log, second_log, second_params, cfg, strict: bool,
+                names=("card", "CPU")) -> tuple[dict, list[str]]:
+    """The MoE routers of a first run (the card's, when serving) and of the
+    second run that replayed its picks (the CPU's): (summary, faults).  Each
+    first call's input is routed again by the second run's router: a pick
+    that differs is a fault, named with the token's top-k margin.  The
+    second run's own top k on its own inputs is compared with the picks it
+    replayed: under ``strict`` (f32, whose noise is ~1e-6) a difference is a
+    fault too; in bf16 it is reported with its margins (rounding noise flips
+    near-ties)."""
     from repro_torch.models import moe
 
     K = cfg.top_k
-    routers = [lp.moe.router for lp in cpu_params.moe_layers]
+    first, second = names
+    routers = [lp.moe.router for lp in second_params.moe_layers]
     same_input, own_input, own_margins = [], [], []
-    for i, ((xg, _, eg), (_, pc, ec)) in enumerate(zip(card_log.seen, cpu_log.seen)):
-        pr, _, again = moe.route(routers[i % len(routers)], xg.cpu(), K)
-        bad = (again.sort(-1).values != eg.cpu().sort(-1).values).any(-1)
+    for i, ((xg, _, eg), (_, pc, ec)) in enumerate(zip(first_log.seen, second_log.seen)):
+        router = routers[i % len(routers)]
+        pr, _, again = moe.route(router, xg.to(router.device), K)
+        bad = (again.sort(-1).values != eg.to(again.device).sort(-1).values).any(-1)
         for t in bad.nonzero()[:, 0].tolist():
-            same_input.append(f"call {i} token {t}: card picks {eg[t].tolist()}, the CPU's "
-                              f"router on the same input {again[t].tolist()}, top-{K} margin "
-                              f"{float(topk_margin(pr[t:t + 1], K)[0]):.3g}")
+            same_input.append(f"call {i} token {t}: {first} picks {eg[t].tolist()}, the "
+                              f"{second}'s router on the same input {again[t].tolist()}, "
+                              f"top-{K} margin {float(topk_margin(pr[t:t + 1], K)[0]):.3g}")
         own = pc.topk(K, dim=-1).indices.sort(-1).values
         flip = (own != ec.sort(-1).values).any(-1)
         for t in flip.nonzero()[:, 0].tolist():
             margin = float(topk_margin(pc[t:t + 1], K)[0])
             own_margins.append(margin)
-            own_input.append(f"call {i} token {t}: the CPU's own input picks "
-                             f"{own[t].tolist()}, the card's {ec[t].tolist()}, top-{K} "
+            own_input.append(f"call {i} token {t}: the {second}'s own input picks "
+                             f"{own[t].tolist()}, the {first}'s {ec[t].tolist()}, top-{K} "
                              f"margin {margin:.3g}")
-    summary = {"calls": len(card_log.seen), "same_input_mismatches": len(same_input),
+    summary = {"calls": len(first_log.seen), "same_input_mismatches": len(same_input),
                "own_input_flips": len(own_input),
                "own_input_flip_margins": sorted(own_margins)[:8]}
     return summary, same_input + (own_input if strict else [])
+
+
+def replayed(first, second):
+    """Run ``first`` with its MoE picks recorded, then ``second`` replaying
+    them (moe.ROUTE_LOG; a model without MoE layers records none):
+    (first's result, second's, first's log, second's log)."""
+    from repro_torch.models import moe
+
+    first_log = moe.RouteLog()
+    try:
+        moe.ROUTE_LOG = first_log
+        a = first()
+        moe.ROUTE_LOG = second_log = moe.RouteLog([e for _, _, e in first_log.seen])
+        b = second()
+    finally:
+        moe.ROUTE_LOG = None
+    if second_log.replay:
+        raise AssertionError(f"{len(second_log.replay)} replayed picks unused")
+    return a, b, first_log, second_log
 
 
 def reference_run(cfg, device: str = "cuda") -> tuple[list[float], dict, list[str]]:
@@ -1189,24 +1250,19 @@ def reference_run(cfg, device: str = "cuda") -> tuple[list[float], dict, list[st
 
     def both(card_step, cpu_step):
         """The card's step (its picks recorded), then the CPU's (replaying them)."""
-        n = len(card_log.seen)
-        moe.ROUTE_LOG = card_log
-        card = card_step()
-        cpu_log.replay = [e for _, _, e in card_log.seen[n:]]
-        moe.ROUTE_LOG = cpu_log
-        return card, cpu_step()
+        card, cpu_out, card_step_log, cpu_step_log = replayed(card_step, cpu_step)
+        card_log.seen += card_step_log.seen
+        cpu_log.seen += cpu_step_log.seen
+        return card, cpu_out
 
-    try:
-        (cg, lg), (cc, lc) = both(lambda: gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(device)),
-                                  lambda: cpu.prefill(pc, cpu.init_cache(2, 104), toks))
-        rel = [_rel(lg.cpu(), lc)]
-        for _ in range(3):
-            nxt = lc.argmax(-1)
-            (cg, lg), (cc, lc) = both(lambda: gpu.decode_step(pg, cg, nxt.to(device)),
-                                      lambda: cpu.decode_step(pc, cc, nxt))
-            rel.append(_rel(lg.cpu(), lc))
-    finally:
-        moe.ROUTE_LOG = None
+    (cg, lg), (cc, lc) = both(lambda: gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(device)),
+                              lambda: cpu.prefill(pc, cpu.init_cache(2, 104), toks))
+    rel = [_rel(lg.cpu(), lc)]
+    for _ in range(3):
+        nxt = lc.argmax(-1)
+        (cg, lg), (cc, lc) = both(lambda: gpu.decode_step(pg, cg, nxt.to(device)),
+                                  lambda: cpu.decode_step(pc, cc, nxt))
+        rel.append(_rel(lg.cpu(), lc))
     if not cfg.n_experts:
         return rel, {}, []
     routes, faults = route_check(card_log, cpu_log, pc, cfg, strict=cfg.dtype == "float32")
@@ -1249,10 +1305,17 @@ def whole(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+# The plans of phase_train_reference the MoE family does not take: its
+# layout across a mesh is ROADMAP A14b (train.step.check_plan refuses it).
+MOE_SKIPPED_PLANS = ("offload", "zero3")
+
+
 def phase_train_reference():
     """The small models of REFERENCE trained 3 AdamW steps on the card and
-    on the CPU from the same weights and batches, under five plans, in f32
-    and in bf16."""
+    on the CPU from the same weights and batches, under five plans (the MoE
+    models under three), in f32 and in bf16; a MoE model's card run replays
+    the CPU run's expert picks, and its routers are held to each other on
+    the step-1 inputs (route_check)."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.launch.mesh import single_device_mesh
@@ -1277,11 +1340,12 @@ def phase_train_reference():
     optcfg = OptConfig(lr=1e-3)
     out, failed = {}, []
     for arch, (what, cut) in REFERENCE.items():
-        if "n_experts" in cut:        # MoE / MLA training is ROADMAP A15b
-            continue
+        is_moe = "n_experts" in cut
         for dtype, (tol_loss, tol_grad) in TRAIN_TOL.items():
             cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
             for label, plan in plans.items():
+                if is_moe and label in MOE_SKIPPED_PLANS:
+                    continue
                 opts = ModelOpts(remat="full" if plan.gc else "none", loss_chunk=0)
                 cpu = build(cfg, device="cpu", seed=SEED, opts=opts)
                 gpu = build(cfg, device="cuda", opts=opts)
@@ -1293,13 +1357,22 @@ def phase_train_reference():
                 else:
                     pg = gpu.load(state)
                     sg, step_g = opt_init(pg, optcfg), make_train_step(gpu, plan, optcfg)
-                grads = []
-                for m, p in ((cpu, pc), (gpu, pg)):
+
+                def grads_of(m, p):
                     loss, _ = m.loss(p, {"tokens": batch0.to(m.device)})
                     loss.backward()
-                    grads.append({n: whole(t.grad).detach().cpu()
-                                  for n, t in p.named_parameters()})
+                    g = {n: whole(t.grad).detach().cpu() for n, t in p.named_parameters()}
                     p.zero_grad(set_to_none=True)
+                    return g
+
+                # The card under the CPU's picks (none without MoE layers).
+                gc_, gg, cpu_log, card_log = replayed(lambda: grads_of(cpu, pc),
+                                                      lambda: grads_of(gpu, pg))
+                routes, route_faults = route_check(
+                    cpu_log, card_log, pg, cfg, strict=dtype == "float32",
+                    names=("CPU", "card")) if is_moe else ({}, [])
+                del cpu_log, card_log
+                grads = [gc_, gg]
                 grad_rel = {n: _rel(grads[1][n], g) for n, g in grads[0].items()}
                 noise = {n: 0.0 for n in grad_rel}
                 if dtype == "bfloat16" and arch in NOISY_BF16:
@@ -1313,21 +1386,24 @@ def phase_train_reference():
                 loss_rel, losses = [], []
                 for i in range(3):
                     toks = torch.from_numpy(data.batch(i)).long()
-                    pc, sc, mc = step_c(pc, sc, {"tokens": toks})
-                    pg, sg, mg = step_g(pg, sg, {"tokens": toks.cuda()})
+                    (pc, sc, mc), (pg, sg, mg), _, _ = replayed(
+                        lambda: step_c(pc, sc, {"tokens": toks}),
+                        lambda: step_g(pg, sg, {"tokens": toks.cuda()}))
                     loss_rel.append(abs(mg["loss"].item() - mc["loss"].item())
                                     / abs(mc["loss"].item()))
                     losses.append(mg["loss"].item())
                 worst = max(grad_rel, key=grad_rel.get)
                 tightest = max(grad_rel, key=lambda n: grad_rel[n] / bound[n])
-                out[f"{arch} {dtype} {label}"] = {
+                entry = out[f"{arch} {dtype} {label}"] = {
                     "loss_rel": loss_rel, "losses": losses,
                     "step1_grad_rel_max": grad_rel[worst], "step1_grad_rel_argmax": worst,
                     "step1_grad_bound_at_argmax": bound[worst],
                     "step1_grad_closest_to_bound": tightest,
                     "step1_grad_rel_there": grad_rel[tightest], "bound_there": bound[tightest]}
+                if is_moe:
+                    entry.update(routes=routes, route_faults=route_faults[:4])
                 if (max(loss_rel) > tol_loss or grad_rel[tightest] > bound[tightest]
-                        or not np.isfinite(losses).all()):
+                        or not np.isfinite(losses).all() or route_faults):
                     failed.append(f"{arch} {dtype} {label}")
                 if plan.offload and not all(t.is_pinned() for k in ("m", "v")
                                             for t in sg[k].values()):
@@ -1341,6 +1417,9 @@ def phase_train_reference():
                                  in REFERENCE.items()},
          batch="batch 2, seq 100, AdamW lr 1e-3, 3 steps", tol_loss_grad=TRAIN_TOL,
          plans={label: plan.strategy for label, plan in plans.items()},
+         moe_plans_skipped={label: "the MoE family's plans across a mesh are ROADMAP A14b"
+                            for label in MOE_SKIPPED_PLANS},
+         moe_picks="the card replays the CPU's expert picks; routers held on step 1's inputs",
          noisy_bf16_bound="tol_grad + 2 x |CPU bf16 - CPU f32| per leaf for " +
          ", ".join(NOISY_BF16), **out)
     if failed:
@@ -1583,6 +1662,32 @@ TRAINED = {
         "flash_attention_bwd": (cfg.n_layers // cfg.attn_every) * n},
     "rwkv6-1.6b train": lambda cfg, n: {"wkv6_fwd": cfg.n_layers * n,
                                         "wkv6_bwd": cfg.n_layers * n},
+    # GC as llama2-7b's: 2 forward and 1 backward flash launch a layer a step
+    "moonshot-v1-16b-a3b train": lambda cfg, n: {"flash_attention_fwd": 2 * cfg.n_layers * n,
+                                                 "flash_attention_bwd": cfg.n_layers * n},
+    # every launch at d 192 / dv 128; the MTP block runs outside the
+    # checkpointed layers, so its attention forward runs once a step
+    "deepseek-v3-671b train": lambda cfg, n: {
+        "flash_attention_fwd": (2 * cfg.n_layers + cfg.mtp_depth) * n,
+        "flash_attention_bwd": (cfg.n_layers + cfg.mtp_depth) * n},
+}
+# The trained MoE paths, cut in depth to fit one card with their gradients
+# and bf16 moments: (what was cut, the cut, AdamW's learning rate).
+# deepseek-v3-671b runs at its published peak rate, 2.2e-4 (arXiv:2412.19437
+# §4.2): at llama2-7b's 1e-3 its loss on one fixed batch rose over steps 2-3
+# (16.0, 8.7, 14.4, then 18.9; grad norm 11 -> 80), where the port and the
+# JAX package follow the same trajectory at either rate on a narrower cut
+# (CHANGES.md).
+TRAIN_CUT = {
+    "moonshot-v1-16b-a3b": ("n_layers 48 -> 10: 1 dense and 9 MoE layers of 64 experts top-6 "
+                            "and 2 shared, 6.0e9 parameters (the 48 layers' 28.4e9 with their "
+                            "gradients and moments do not fit one card); every width is the "
+                            "published one", dict(n_layers=10), 1e-3),
+    "deepseek-v3-671b": ("n_layers 61 -> 3: its 3 dense layers (MLA, 128 heads of 192 / 128) "
+                         "and the MTP block, 4.3e9 parameters; a routed layer (256 experts, "
+                         "11.3e9 parameters) with its gradients and moments does not fit one "
+                         "card beside them (expert sharding across cards is ROADMAP A14b); "
+                         "every width is the published one", dict(n_layers=3), 2.2e-4),
 }
 # The port kernels a train step's profile reports, by the substring of their
 # device-side names.
@@ -1595,6 +1700,8 @@ TRACE_SHARES = {
                          "wkv6_bwd_sums": "wkv6_bwd_sums_kernel",
                          "wkv6_bwd_scan": "wkv6_bwd_scan_kernel",
                          "wkv6_bwd_chunks": "wkv6_bwd_chunk_kernel"},
+    "moonshot-v1-16b-a3b train": {"flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
+    "deepseek-v3-671b train": {"flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
 }
 
 
@@ -1619,13 +1726,35 @@ def check_launches(path: str, cfg, steps: int, launches, plain_calls,
 SPLIT_ROUNDS = 3
 
 
+def step1_repeat(model, params, batch) -> dict:
+    """The loss, metrics and every gradient of one step's forward + backward,
+    twice from the same weights: whether the two agree bit for bit."""
+    runs = []
+    for _ in range(2):
+        loss, metrics = model.loss(params, batch)
+        loss.backward()
+        runs.append((loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                     [p.grad for p in params.parameters()]))
+        for p in params.parameters():
+            p.grad = None
+    (l0, m0, g0), (l1, m1, g1) = runs
+    same_grads = sum(torch.equal(a, b) for a, b in zip(g0, g1))
+    out = {"loss_bit_equal": torch.equal(l0, l1),
+           "metrics_bit_equal": all(torch.equal(m0[k], m1[k]) for k in m0),
+           "grads_bit_equal": same_grads, "grads": len(g0)}
+    del runs, g0, g1
+    return out
+
+
 def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
-    """llama2-7b or zamba2-7b, bf16, batch 4, seq 512, through
-    make_train_step with ExecutionPlan(gc=True) and AdamW with bf16 moments
-    (f32 moments would need 6.74e9 x 12 bytes = 80.9 GB for llama2-7b), on
-    one fixed batch; then a profile of one step, and a step's two halves
-    (forward + backward, the update) timed apart.  Returns the launches and
-    the peak device bytes of the 3 steps."""
+    """llama2-7b, zamba2-7b, or a MoE path of TRAIN_CUT (cut in depth), bf16,
+    batch 4, seq 512, through make_train_step with ExecutionPlan(gc=True)
+    and AdamW with bf16 moments (f32 moments would need 6.74e9 x 12 bytes =
+    80.9 GB for llama2-7b), on one fixed batch; then a profile of one step,
+    and a step's two halves (forward + backward, the update) timed apart.  A
+    MoE path first runs step 1's forward + backward twice, which must agree
+    bit for bit, and reports each step's ce / aux / mtp.  Returns the
+    launches and the peak device bytes of the 3 steps."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.models import ModelOpts, build
@@ -1634,23 +1763,28 @@ def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
     from repro_torch.train.step import make_train_step
 
     path = f"{arch} train"
-    cfg = configs.get(arch)
+    cut, cut_kw, lr = TRAIN_CUT.get(arch, ("none", {}, 1e-3))
+    cfg = configs.get(arch).with_(**cut_kw)
     B, S = 4, 512
     plan = ExecutionPlan(gc=True)
-    optcfg = OptConfig(lr=1e-3, moment_dtype="bfloat16")
+    optcfg = OptConfig(lr=lr, moment_dtype="bfloat16")
     free_device_memory()
     model = build(cfg, device="cuda", seed=SEED, opts=ModelOpts(remat="full", loss_chunk=0))
     params = model.init()
-    opt_state = opt_init(params, optcfg)
     n_params = sum(p.numel() for p in params.parameters())
     step = make_train_step(model, plan, optcfg)
     data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                   seed=SEED))
     batch = {"tokens": torch.from_numpy(data.batch(0)).long().cuda()}
+    repeat = None
+    if cfg.n_experts:
+        repeat = step1_repeat(model, params, batch)
+        free_device_memory()
+    opt_state = opt_init(params, optcfg)
 
     counters = kernel_counters()
     reset_counts(counters)
-    times, losses, gnorms = [], [], []
+    times, losses, gnorms, parts = [], [], [], []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1659,6 +1793,7 @@ def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
         times.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
         gnorms.append(metrics["grad_norm"].item())
+        parts.append({k: metrics[k].item() for k in ("ce", "aux", "mtp") if k in metrics})
     launches, plain_calls = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     check_launches(path, cfg, steps, launches, plain_calls)
@@ -1666,13 +1801,17 @@ def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
         final = model.loss(params, batch)[0].item()
     step_ms = float(np.median(times[1:])) * 1e3
     emit("train", path=path, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         n_params=n_params, dtype="bfloat16", batch=B, seq=S, plan=plan.strategy,
-         optimizer="adamw lr 1e-3, bf16 moments", steps=steps, losses=losses,
-         loss_after_last_step=final, grad_norms=gnorms, step_ms=step_ms,
-         step_ms_all=[t * 1e3 for t in times], tokens_per_s=B * S / step_ms * 1e3,
-         max_memory_allocated=peak, launches=launches, plain_calls=plain_calls)
+         cut=cut, n_params=n_params, dtype="bfloat16", batch=B, seq=S, plan=plan.strategy,
+         optimizer=f"adamw lr {lr:g}, bf16 moments", steps=steps, losses=losses,
+         loss_parts=parts if cfg.n_experts else None, loss_after_last_step=final,
+         grad_norms=gnorms, step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+         tokens_per_s=B * S / step_ms * 1e3, max_memory_allocated=peak,
+         step1_repeat=repeat, launches=launches, plain_calls=plain_calls)
     if not (np.isfinite(losses).all() and np.isfinite(final) and final < losses[0]):
         raise AssertionError(f"{path}: loss did not fall on one batch: {losses} -> {final}")
+    if repeat and not (repeat["loss_bit_equal"] and repeat["metrics_bit_equal"]
+                       and repeat["grads_bit_equal"] == repeat["grads"]):
+        raise AssertionError(f"{path}: step 1 repeated is not bit-equal: {repeat}")
     phase_train_trace(path, lambda: step(params, opt_state, batch), TRACE_SHARES[path])
 
     # One step's two halves timed apart: forward + backward, then the update;
@@ -2484,7 +2623,7 @@ def main() -> int:
     by_path = {arch: phase_serve(arch) for arch in SERVED}
     # The training phases run after serving, so that the serve phases meet the
     # allocator in the state they always have (their peaks compare to the byte).
-    mains["flash_attention_bwd"] = phase_bwd_kernels()
+    mains["flash_attention_bwd"], mains["flash_attention_bwd_mla"] = phase_bwd_kernels()
     mains["ssd_scan_bwd"] = phase_ssd_bwd_kernels()
     mains["wkv6_bwd"] = phase_wkv_bwd_kernels()
     phase_train_reference()
@@ -2494,6 +2633,8 @@ def main() -> int:
     for arch in ("gpt2-1.5b", "rwkv6-1.6b"):
         by_path[f"{arch} train"] = phase_train_launcher(arch)
     by_path["llama2-7b train offload"] = phase_train_offload(peaks["llama2-7b"])
+    for arch in TRAIN_CUT:
+        by_path[f"{arch} train"], _ = phase_train_fixed(arch)
     prof = phase_profile()
     by_path[f"{PROFILE_ARCH} profile"] = prof["launches"]
     sched = phase_schedule(prof)
@@ -2519,20 +2660,21 @@ def main() -> int:
                      "wkv_chunked; no Pallas kernel)", "max_abs_err"),
         "wkv6_decode": ("wkv6_fwd.cu", "src/repro/kernels/wkv6.py:76", "max_abs_err_y"),
     }
-    # The d 192 / dv 128 instantiation of the forward, on its own line: its
-    # launches are the deepseek-v3-671b serve's (every one of which is MLA);
-    # flash_attention_fwd's count holds them too.
-    sources["flash_attention_fwd_mla"] = sources["flash_attention_fwd"]
-    mla_path = "deepseek-v3-671b"
-    for arch, counts in by_path.items():
-        counts["flash_attention_fwd_mla"] = counts["flash_attention_fwd"] if arch == mla_path \
-            else 0
+    # The d 192 / dv 128 instantiations of the forward and the backward, on
+    # lines of their own: their launches are the deepseek-v3-671b serve's and
+    # train's (every one of which is MLA); flash_attention_fwd's and _bwd's
+    # counts hold them too.
+    mla_paths = ("deepseek-v3-671b", "deepseek-v3-671b train")
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        sources[f"{kname}_mla"] = sources[kname]
+        for arch, counts in by_path.items():
+            counts[f"{kname}_mla"] = counts.get(kname, 0) if arch in mla_paths else 0
     kernels = []
     for kname, (src, tpu, err_key) in sources.items():
         main_case = mains[kname]
         kernels.append({
-            "name": kname if kname != "flash_attention_fwd_mla"
-            else "flash_attention_fwd (d 192, dv 128)",
+            "name": kname.removesuffix("_mla") + (" (d 192, dv 128)" if kname.endswith("_mla")
+                                                  else ""),
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu,

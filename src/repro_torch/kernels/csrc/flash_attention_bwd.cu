@@ -3,9 +3,10 @@
 // Replaces the FlashAttention-2 backward that the JAX package writes at the
 // HLO level, src/repro/models/flash.py:_vjp_bwd (:146-214, defvjp at :217);
 // the Pallas kernel src/repro/kernels/flash_attention.py has no backward.
-// Same function: given q (B,Sq,Hq,d), k/v (B,Sk,Hkv,d), the forward's o and
-// lse (natural log, f32, (B,Hq,Sq)) and the output gradient do,
-//   delta_i = sum_c do_ic o_ic                        (f32, one per row)
+// Same function: given q (B,Sq,Hq,dk), k (B,Sk,Hkv,dk), v (B,Sk,Hkv,dv), the
+// forward's o (B,Sq,Hq,dv) and lse (natural log, f32, (B,Hq,Sq)) and the
+// output gradient do (B,Sq,Hq,dv),
+//   delta_i = sum_c do_ic o_ic                        (f32, one per row, over dv)
 //   P_ij    = exp(scale q_i . k_j - lse_i)            (recomputed, never stored)
 //   dS_ij   = P_ij (do_i . v_j - delta_i) scale
 //   dq = dS k,  dk = dS^T q,  dv = P^T do             (f32 sums, out in q's dtype)
@@ -14,6 +15,12 @@
 // window, and ragged lengths (the last q and k tiles are masked).  Inputs are
 // read in place through their (B,S,H,d) strides; any strides are taken, with
 // the last dim contiguous.  dq, dk, dv are written contiguous.
+//
+// Every kernel is templated on the two head dims <DK, DV>, as the forward
+// (flash_attention_fwd.cu): Q, K, dq and dk rows are DK wide, V, O, dO and
+// dv rows DV wide.  The pairs built are (d, d) for d in 64, 112, 128, 256
+// and DeepSeek-V3's MLA pair (192, 128) (128 nope + 64 rope for q/k, 128 for
+// v); for DK == DV the code is the one-dim kernel it was.
 //
 // Two kernels, run in this order on one stream:
 //   * dq kernel, one block per (q tile, q head, batch), as pass A of the
@@ -27,33 +34,37 @@
 //     result is the same bits from run to run.
 //
 // What bounds it on the card.  Per (query, key) pair of the band the
-// gradient needs five products of length d (S, dP, dq, dk, dv): 10 d
-// operations.  At the llama2-7b training shape (B 4, S 512, 32 heads of 128,
-// causal) that is 21.5 GFLOP against 134.7 MB of q, k, v, o, do, dq, dk,
-// dv, lse and delta: 0.022 ms at 989 TFLOP/s in bf16 and 0.040 ms at 3.35
-// TB/s, so the bytes bind in bf16, and the operations (0.32 ms at 67
-// TFLOP/s) in f32.  Both passes recompute S and dP (seven products, not
-// five): the price of summing without atomics.
+// gradient needs five products (S and dq, dk of length dk; dP and dv of
+// length dv): 6 dk + 4 dv operations (10 d at dk = dv).  At the llama2-7b
+// training shape (B 4, S 512, 32 heads of 128, causal) that is 21.5 GFLOP
+// against 134.7 MB of q, k, v, o, do, dq, dk, dv, lse and delta: 0.022 ms at
+// 989 TFLOP/s in bf16 and 0.040 ms at 3.35 TB/s, so the bytes bind in bf16,
+// and the operations (0.32 ms at 67 TFLOP/s) in f32.  At DeepSeek-V3's
+// (B 4, S 512, 128 heads of 192 / 128) it is 112 GFLOP against 671 MB:
+// 0.113 and 0.200 ms, the bytes again.  Both passes recompute S and dP
+// (seven products, not five): the price of summing without atomics.
 //
-// bf16 at d = 64, 112, 128 (the training path): tensor-core kernels built
-// from the forward kernel's pieces (flash_attention_fwd.cu): 4 warps a
-// block, each owning 16 rows; operands copied by cp.async.cg 16 bytes a
-// thread into bf16 shared memory with rows padded by 16 bytes, moved by
-// ldmatrix (.trans where the product's depth runs down the rows), and every
-// product an mma.sync.m16n8k16 bf16 x bf16 -> f32.  P and dS never leave
-// registers: the m16n8 accumulator layout of S^(T) is the A-fragment layout
-// of the next product, so they are packed to bf16 pairs (where the reference
-// casts p and ds to the input dtype) and fed straight on.
+// bf16 at (64, 64), (112, 112), (128, 128) and (192, 128) (the training
+// paths): tensor-core kernels built from the forward kernel's pieces
+// (flash_attention_fwd.cu): 4 warps a block, each owning 16 rows; operands
+// copied by cp.async.cg 16 bytes a thread into bf16 shared memory with rows
+// padded by 16 bytes, moved by ldmatrix (.trans where the product's depth
+// runs down the rows), and every product an mma.sync.m16n8k16 bf16 x bf16 ->
+// f32.  P and dS never leave registers: the m16n8 accumulator layout of
+// S^(T) is the A-fragment layout of the next product, so they are packed to
+// bf16 pairs (where the reference casts p and ds to the input dtype) and fed
+// straight on.
 //   * dq: a block holds 64 query rows of Q and dO and walks the band's key
-//     tiles (32 keys at d = 128, 64 below), double-buffered by cp.async:
+//     tiles (32 keys at dk >= 128, 64 below), double-buffered by cp.async:
 //     S = Q K^T, dP = dO V^T, dS, then dq += dS K with K through
 //     ldmatrix.trans.  delta for its rows is computed first, one thread a
 //     row, and written out.
 //   * dk/dv: a block holds 64 keys of K and V and walks (query head of the
 //     group, q tile of 32 rows) pairs as one double-buffered sequence:
 //     S^T = K Q^T, dP^T = V dO^T, then dv += P^T dO and dk += dS^T Q, with
-//     each column's lse and delta read from shared memory.  dk and dv (2 x
-//     d/8 x 4 floats a thread) stay in registers.
+//     each column's lse and delta read from shared memory.  dk and dv
+//     ((dk + dv)/8 x 4 floats a thread: 160 at (192, 128), against 128 at
+//     (128, 128)) stay in registers.
 // Left out: wgmma, TMA, warp specialisation, and one K/V tile shared by the
 // q heads of a group in the dq pass.
 //
@@ -61,8 +72,8 @@
 // registers): a CUDA-core kernel pair with the same structure.  Every
 // product runs as f32 FMAs from tiles staged as f32 in shared memory (rows
 // padded to d + 1 floats, so the 16 rows a half-warp reads sit in 16
-// different banks); each thread owns a 4 x 4 (2 x 2 at d = 256) block of the
-// score tile and a 4 x d/16 (2 x d/16) block of its accumulator.  f32 runs
+// different banks); each thread owns a 4 x 4 (2 x 2 at dk > 128) block of the
+// score tile and a 4 x dk/16 (2 x dk/16) block of its accumulators.  f32 runs
 // in the tests and the card-vs-CPU training check, whose limits a TF32
 // product would miss.
 
@@ -98,16 +109,20 @@ struct Params {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 256;     // 16 x 16
 
-// Rows of a q tile and keys of a k tile (the same count), for head dim D.
-template <int D>
+// Rows of a q tile and keys of a k tile (the same count), for head dims
+// <DK, DV>.
+template <int DK, int DV>
 struct Tile {
-  static constexpr int BT = D <= 128 ? 64 : 32;
+  static_assert(DV <= DK, "o is staged in the rows of the K tile");
+  static constexpr int BT = DK <= 128 ? 64 : 32;
   static constexpr int R = BT / 16;       // tile rows (and score columns) per thread
-  static constexpr int C = D / 16;        // head-dim columns per thread
-  static constexpr int LD = D + 1;        // shared row stride of a (BT, D) tile
+  static constexpr int C = DK / 16;       // q/k head-dim columns per thread
+  static constexpr int CV = DV / 16;      // v/o head-dim columns per thread
+  static constexpr int LD = DK + 1;       // shared row stride of a (BT, DK) tile
+  static constexpr int LDV = DV + 1;      // shared row stride of a (BT, DV) tile
   static constexpr int LB = BT + 1;       // shared row stride of a (BT, BT) tile
-  static constexpr int DQ_SMEM = (4 * BT * LD + BT * LB + 2 * BT) * 4;
-  static constexpr int DKV_SMEM = (4 * BT * LD + 2 * BT * LB + 2 * BT) * 4;
+  static constexpr int DQ_SMEM = (2 * BT * (LD + LDV) + BT * LB + 2 * BT) * 4;
+  static constexpr int DKV_SMEM = (2 * BT * (LD + LDV) + 2 * BT * LB + 2 * BT) * 4;
 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -134,16 +149,16 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
 }
 
 // dq, and delta for the dk/dv kernel.
-template <int D, typename T>
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
-  using Tl = Tile<D>;
-  constexpr int BT = Tl::BT, R = Tl::R, C = Tl::C, LD = Tl::LD, LB = Tl::LB;
+  using Tl = Tile<DK, DV>;
+  constexpr int BT = Tl::BT, R = Tl::R, C = Tl::C, LD = Tl::LD, LDV = Tl::LDV, LB = Tl::LB;
   extern __shared__ float smem[];
   float* q_s = smem;              // BT x LD
-  float* do_s = q_s + BT * LD;    // BT x LD
-  float* k_s = do_s + BT * LD;    // BT x LD; o in the prologue
-  float* v_s = k_s + BT * LD;     // BT x LD
-  float* ds_s = v_s + BT * LD;    // BT x LB
+  float* do_s = q_s + BT * LD;    // BT x LDV
+  float* k_s = do_s + BT * LDV;   // BT x LD; o (BT x LDV) in the prologue
+  float* v_s = k_s + BT * LD;     // BT x LDV
+  float* ds_s = v_s + BT * LDV;   // BT x LB
   float* lse_s = ds_s + BT * LB;  // BT, in log2 units
   float* dl_s = lse_s + BT;       // BT
 
@@ -163,14 +178,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_rows<D, BT>(q_s, qb, p.q_ss, nq);
-  load_rows<D, BT>(do_s, dob, p.do_ss, nq);
-  load_rows<D, BT>(k_s, ob, p.o_ss, nq);
+  load_rows<DK, BT>(q_s, qb, p.q_ss, nq);
+  load_rows<DV, BT>(do_s, dob, p.do_ss, nq);
+  load_rows<DV, BT>(k_s, ob, p.o_ss, nq);
   __syncthreads();
   const long long row0 = ((long long)b * p.Hq + h) * p.Sq + q0;
   for (int r = threadIdx.x; r < BT; r += THREADS) {
     float acc = 0.f;
-    for (int c = 0; c < D; ++c) acc = fmaf(do_s[r * LD + c], k_s[r * LD + c], acc);
+    for (int c = 0; c < DV; ++c) acc = fmaf(do_s[r * LDV + c], k_s[r * LDV + c], acc);
     dl_s[r] = acc;
     lse_s[r] = r < nq ? p.lse[row0 + r] * LOG2E : 0.f;
     if (r < nq) p.delta[row0 + r] = acc;
@@ -191,8 +206,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   for (int k0 = (lo / BT) * BT; k0 < hi; k0 += BT) {
     const int nk = min(BT, p.Sk - k0);
     __syncthreads();              // the last tile's (or the prologue's) reads are done
-    load_rows<D, BT>(k_s, kb + k0 * p.k_ss, p.k_ss, nk);
-    load_rows<D, BT>(v_s, vb + k0 * p.v_ss, p.v_ss, nk);
+    load_rows<DK, BT>(k_s, kb + k0 * p.k_ss, p.k_ss, nk);
+    load_rows<DV, BT>(v_s, vb + k0 * p.v_ss, p.v_ss, nk);
     __syncthreads();
 
     float s[R][R], dp[R][R];
@@ -201,22 +216,29 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[R], dov[R], kv[R], vv[R];
+    for (int c = 0; c < DK; ++c) {
+      float qv[R], kv[R];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         qv[i] = q_s[(ty + 16 * i) * LD + c];
-        dov[i] = do_s[(ty + 16 * i) * LD + c];
         kv[i] = k_s[(tx + 16 * i) * LD + c];
-        vv[i] = v_s[(tx + 16 * i) * LD + c];
       }
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        for (int j = 0; j < R; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      if (c < DV) {               // always, at DK == DV
+        float dov[R], vv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          dov[i] = do_s[(ty + 16 * i) * LDV + c];
+          vv[i] = v_s[(tx + 16 * i) * LDV + c];
         }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -250,23 +272,24 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     if (r >= nq) continue;
-    T* row = dqb + (((long long)b * p.Sq + q0 + r) * p.Hq + h) * D;
+    T* row = dqb + (((long long)b * p.Sq + q0 + r) * p.Hq + h) * DK;
 #pragma unroll
     for (int j = 0; j < C; ++j) st(row + tx + 16 * j, acc[i][j]);
   }
 }
 
 // dk and dv; needs the delta the dq kernel wrote.
-template <int D, typename T>
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p) {
-  using Tl = Tile<D>;
-  constexpr int BT = Tl::BT, R = Tl::R, C = Tl::C, LD = Tl::LD, LB = Tl::LB;
+  using Tl = Tile<DK, DV>;
+  constexpr int BT = Tl::BT, R = Tl::R, C = Tl::C, CV = Tl::CV, LD = Tl::LD, LDV = Tl::LDV;
+  constexpr int LB = Tl::LB;
   extern __shared__ float smem[];
   float* k_s = smem;              // BT x LD
-  float* v_s = k_s + BT * LD;     // BT x LD
-  float* q_s = v_s + BT * LD;     // BT x LD
-  float* do_s = q_s + BT * LD;    // BT x LD
-  float* p_s = do_s + BT * LD;    // BT x LB: P of (q row, key)
+  float* v_s = k_s + BT * LD;     // BT x LDV
+  float* q_s = v_s + BT * LDV;    // BT x LD
+  float* do_s = q_s + BT * LD;    // BT x LDV
+  float* p_s = do_s + BT * LDV;   // BT x LB: P of (q row, key)
   float* ds_s = p_s + BT * LB;    // BT x LB: dS of (q row, key)
   float* lse_s = ds_s + BT * LB;  // BT, in log2 units
   float* dl_s = lse_s + BT;       // BT
@@ -280,10 +303,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
   const int nk = min(BT, p.Sk - k0);
   const int off = p.Sk - p.Sq;
 
-  load_rows<D, BT>(k_s, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + k0 * p.k_ss,
-                   p.k_ss, nk);
-  load_rows<D, BT>(v_s, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + k0 * p.v_ss,
-                   p.v_ss, nk);
+  load_rows<DK, BT>(k_s, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + k0 * p.k_ss,
+                    p.k_ss, nk);
+  load_rows<DV, BT>(v_s, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + k0 * p.v_ss,
+                    p.v_ss, nk);
 
   // Query rows that see a key of this tile: [qlo, qhi).  Query i sees key j
   // when j <= off + i (causal) and off + i - j < window.
@@ -291,11 +314,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
   if (p.causal) qlo = max(0, k0 - off);
   if (p.window) qhi = min(qhi, k0 + nk - 1 + p.window - off);
 
-  float dk_acc[R][C], dv_acc[R][C];
+  float dk_acc[R][C], dv_acc[R][CV];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int j = 0; j < C; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < C; ++j) dk_acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CV; ++j) dv_acc[i][j] = 0.f;
+  }
 
   for (int g = 0; g < p.group; ++g) {
     const int h = hk * p.group + g;
@@ -305,8 +331,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
     for (int q0 = (qlo / BT) * BT; q0 < qhi; q0 += BT) {
       const int nq = min(BT, p.Sq - q0);
       __syncthreads();            // the last tile's reads are done
-      load_rows<D, BT>(q_s, qh + q0 * p.q_ss, p.q_ss, nq);
-      load_rows<D, BT>(do_s, doh + q0 * p.do_ss, p.do_ss, nq);
+      load_rows<DK, BT>(q_s, qh + q0 * p.q_ss, p.q_ss, nq);
+      load_rows<DV, BT>(do_s, doh + q0 * p.do_ss, p.do_ss, nq);
       for (int r = threadIdx.x; r < BT; r += THREADS) {
         lse_s[r] = r < nq ? p.lse[hrow + q0 + r] * LOG2E : 0.f;
         dl_s[r] = r < nq ? p.delta[hrow + q0 + r] : 0.f;
@@ -320,22 +346,29 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
 #pragma unroll
         for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-      for (int c = 0; c < D; ++c) {
-        float qv[R], dov[R], kv[R], vv[R];
+      for (int c = 0; c < DK; ++c) {
+        float qv[R], kv[R];
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           qv[i] = q_s[(ty + 16 * i) * LD + c];
-          dov[i] = do_s[(ty + 16 * i) * LD + c];
           kv[i] = k_s[(tx + 16 * i) * LD + c];
-          vv[i] = v_s[(tx + 16 * i) * LD + c];
         }
 #pragma unroll
         for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < R; ++j) {
-            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          for (int j = 0; j < R; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        if (c < DV) {             // always, at DK == DV
+          float dov[R], vv[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            dov[i] = do_s[(ty + 16 * i) * LDV + c];
+            vv[i] = v_s[(tx + 16 * i) * LDV + c];
           }
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < R; ++j) dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        }
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -362,13 +395,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
         }
 #pragma unroll
         for (int j = 0; j < C; ++j) {
-          const float dov = do_s[r * LD + tx + 16 * j];
           const float qv = q_s[r * LD + tx + 16 * j];
+          if (j < CV) {
+            const float dov = do_s[r * LDV + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < R; ++i) {
-            dv_acc[i][j] = fmaf(pv[i], dov, dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(dsv[i], qv, dk_acc[i][j]);
+            for (int i = 0; i < R; ++i) dv_acc[i][j] = fmaf(pv[i], dov, dv_acc[i][j]);
           }
+#pragma unroll
+          for (int i = 0; i < R; ++i) dk_acc[i][j] = fmaf(dsv[i], qv, dk_acc[i][j]);
         }
       }
     }
@@ -380,12 +414,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
   for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     if (r >= nk) continue;
-    const long long at = (((long long)b * p.Sk + k0 + r) * p.Hkv + hk) * D;
+    const long long row = ((long long)b * p.Sk + k0 + r) * p.Hkv + hk;
 #pragma unroll
-    for (int j = 0; j < C; ++j) {
-      st(dkb + at + tx + 16 * j, dk_acc[i][j]);
-      st(dvb + at + tx + 16 * j, dv_acc[i][j]);
-    }
+    for (int j = 0; j < C; ++j) st(dkb + row * DK + tx + 16 * j, dk_acc[i][j]);
+#pragma unroll
+    for (int j = 0; j < CV; ++j) st(dvb + row * DV + tx + 16 * j, dv_acc[i][j]);
   }
 }
 
@@ -459,31 +492,63 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&lo)[4], con
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-template <int D>
+template <int DK, int DV>
 struct Cfg {
+  static_assert(DV <= DK, "the dP and dv loops ride on the S and dk ones");
   static constexpr int THREADS = 128;            // 4 warps, 16 rows each
-  static constexpr int LD = D + 8;               // shared row stride (elements)
-  static constexpr int CH = D / 8;               // 16-byte chunks per row
-  static constexpr int KS = D / 16;              // k-steps of a product over d
-  static constexpr int DT = D / 8;               // n-tiles over d
+  static constexpr int LD = DK + 8;              // shared row stride of Q, K (elements)
+  static constexpr int LDV = DV + 8;             // shared row stride of dO, V
+  static constexpr int CH = DK / 8;              // 16-byte chunks per Q / K row
+  static constexpr int CHV = DV / 8;             // 16-byte chunks per dO / V row
+  static constexpr int KS = DK / 16;             // k-steps of a product over dk
+  static constexpr int KSV = DV / 16;            // k-steps of a product over dv
+  static constexpr int DT = DK / 8;              // n-tiles over dk
+  static constexpr int DTV = DV / 8;             // n-tiles over dv
   // dq kernel: 64 query rows a block, BN keys a tile.
-  static constexpr int BQ = 64, BN = D >= 128 ? 32 : 64, NT = BN / 8;
-  static constexpr int DQ_SMEM = (2 * BQ + 4 * BN) * LD * 2 + 2 * BQ * 4;
+  static constexpr int BQ = 64, BN = DK >= 128 ? 32 : 64, NT = BN / 8;
+  static constexpr int DQ_SMEM = (BQ + 2 * BN) * (LD + LDV) * 2 + 2 * BQ * 4;
   // dk/dv kernel: 64 keys a block, BQT query rows a tile.
   static constexpr int BK = 64, BQT = 32, NQ = BQT / 8;
-  static constexpr int DKV_SMEM = (2 * BK + 4 * BQT) * LD * 2 + 4 * BQT * 4;
+  static constexpr int DKV_SMEM = (BK + 2 * BQT) * (LD + LDV) * 2 + 4 * BQT * 4;
 };
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dq_bf16_kernel(const Params p) {
-  using C = Cfg<D>;
-  constexpr int BQ = C::BQ, BN = C::BN, LD = C::LD, CH = C::CH, THREADS = C::THREADS;
+// cp.async ROWS rows of a (DK-wide) tile A and a (DV-wide) tile B, row
+// strides `ss*` elements in global memory and LD / LDV in shared memory;
+// rows at or past n_valid are zero-filled.  At DK == DV one loop moves both,
+// as the one-dim kernel did.
+template <int DK, int DV, int ROWS>
+__device__ __forceinline__ void load_pair(bf16* dst_a, const bf16* src_a, long long ss_a,
+                                          bf16* dst_b, const bf16* src_b, long long ss_b,
+                                          int n_valid, int tid) {
+  using C = Cfg<DK, DV>;
+  constexpr int LD = C::LD, LDV = C::LDV, CH = C::CH, CHV = C::CHV, THREADS = C::THREADS;
+  for (int e = tid; e < ROWS * CH; e += THREADS) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool ok = r < n_valid;
+    cp_async16(smem_u32(dst_a + r * LD + c), src_a + (ok ? r * ss_a : 0) + c, ok);
+    if constexpr (DK == DV)
+      cp_async16(smem_u32(dst_b + r * LDV + c), src_b + (ok ? r * ss_b : 0) + c, ok);
+  }
+  if constexpr (DK != DV) {
+    for (int e = tid; e < ROWS * CHV; e += THREADS) {
+      const int r = e / CHV, c = (e % CHV) * 8;
+      const bool ok = r < n_valid;
+      cp_async16(smem_u32(dst_b + r * LDV + c), src_b + (ok ? r * ss_b : 0) + c, ok);
+    }
+  }
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(Cfg<DK, DV>::THREADS)
+    flash_bwd_dq_bf16_kernel(const Params p) {
+  using C = Cfg<DK, DV>;
+  constexpr int BQ = C::BQ, BN = C::BN, LD = C::LD, LDV = C::LDV, THREADS = C::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);    // BQ x LD
-  bf16* sdO = sQ + BQ * LD;                         // BQ x LD
-  bf16* sK = sdO + BQ * LD;                         // 2 x BN x LD
-  bf16* sV = sK + 2 * BN * LD;                      // 2 x BN x LD
-  float* lse_s = reinterpret_cast<float*>(sV + 2 * BN * LD);   // BQ, log2 units
+  bf16* sdO = sQ + BQ * LD;                         // BQ x LDV
+  bf16* sK = sdO + BQ * LDV;                        // 2 x BN x LD
+  bf16* sV = sK + 2 * BN * LD;                      // 2 x BN x LDV
+  float* lse_s = reinterpret_cast<float*>(sV + 2 * BN * LDV);  // BQ, log2 units
   float* dl_s = lse_s + BQ;                                      // BQ
 
   // Heaviest causal tiles (the last ones) are scheduled first.
@@ -513,40 +578,28 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dq_bf16_kernel(cons
   const int t_begin = lo / BN;
   const int t_end = hi > 0 ? (hi + BN - 1) / BN : 0;
 
-  for (int e = tid; e < BQ * CH; e += THREADS) {
-    const int r = e / CH, c = (e % CH) * 8;
-    const bool ok = r < nq;
-    cp_async16(smem_u32(sQ + r * LD + c), qb + (ok ? r * p.q_ss : 0) + c, ok);
-    cp_async16(smem_u32(sdO + r * LD + c), dob + (ok ? r * p.do_ss : 0) + c, ok);
-  }
+  load_pair<DK, DV, BQ>(sQ, qb, p.q_ss, sdO, dob, p.do_ss, nq, tid);
   cp_async_commit();                               // group: Q and dO
   auto load_kv = [&](int t, int stage) {
     const int k0 = t * BN;
     const int nk = min(BN, p.Sk - k0);
-    bf16* dk = sK + stage * BN * LD;
-    bf16* dv = sV + stage * BN * LD;
-    for (int e = tid; e < BN * CH; e += THREADS) {
-      const int r = e / CH, c = (e % CH) * 8;
-      const bool ok = r < nk;
-      const long long row = ok ? k0 + r : 0;
-      cp_async16(smem_u32(dk + r * LD + c), kb + row * p.k_ss + c, ok);
-      cp_async16(smem_u32(dv + r * LD + c), vb + row * p.v_ss + c, ok);
-    }
+    load_pair<DK, DV, BN>(sK + stage * BN * LD, kb + (long long)k0 * p.k_ss, p.k_ss,
+                          sV + stage * BN * LDV, vb + (long long)k0 * p.v_ss, p.v_ss, nk, tid);
   };
   if (t_begin < t_end) load_kv(t_begin, 0);
   cp_async_commit();                               // group: the first K/V tile
   cp_async_wait<1>();
   __syncthreads();
 
-  // delta = rowsum(do o) and lse (log2 units; +inf past the last row, so
-  // that P is 0 there), one thread a row.
+  // delta = rowsum(do o) over dv and lse (log2 units; +inf past the last
+  // row, so that P is 0 there), one thread a row.
   const long long row0 = ((long long)b * p.Hq + h) * p.Sq + q0;
   if (tid < BQ) {
     float acc = 0.f;
     if (tid < nq) {
       const bf16* orow = ob + tid * p.o_ss;
-      for (int c = 0; c < D; ++c)
-        acc = fmaf(__bfloat162float(sdO[tid * LD + c]), __bfloat162float(orow[c]), acc);
+      for (int c = 0; c < DV; ++c)
+        acc = fmaf(__bfloat162float(sdO[tid * LDV + c]), __bfloat162float(orow[c]), acc);
       p.delta[row0 + tid] = acc;
     }
     dl_s[tid] = acc;
@@ -564,8 +617,10 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dq_bf16_kernel(cons
   // operands (rows lane % 16, column half lane / 16); B operands stored n x k
   // (two n-tiles per x4); B operands stored k x n, through .trans.
   const uint32_t q_addr = smem_u32(sQ + (wrow + (lane & 15)) * LD + (lane >> 4) * 8);
-  const uint32_t do_addr = smem_u32(sdO + (wrow + (lane & 15)) * LD + (lane >> 4) * 8);
-  const int nk_lane = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+  const uint32_t do_addr = smem_u32(sdO + (wrow + (lane & 15)) * LDV + (lane >> 4) * 8);
+  const int nk_row = (lane & 7) + ((lane >> 4) << 3), nk_col = ((lane >> 3) & 1) * 8;
+  const int nk_lane = nk_row * LD + nk_col;
+  const int nk_lane_v = nk_row * LDV + nk_col;
   const int kn_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
 
   float acc[C::DT][4];
@@ -586,28 +641,30 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dq_bf16_kernel(cons
     }
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T, 16 x BN a warp.
+    // S = Q K^T (depth dk) and dP = dO V^T (depth dv), 16 x BN a warp.
     float s[C::NT][4], dp[C::NT][4];
 #pragma unroll
     for (int j = 0; j < C::NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     const uint32_t k_base = smem_u32(sK + stage * BN * LD + nk_lane);
-    const uint32_t v_base = smem_u32(sV + stage * BN * LD + nk_lane);
+    const uint32_t v_base = smem_u32(sV + stage * BN * LDV + nk_lane_v);
 #pragma unroll
     for (int ks = 0; ks < C::KS; ++ks) {
       uint32_t aq[4], ad[4];
       ldsm_x4(aq, q_addr + ks * 32);
-      ldsm_x4(ad, do_addr + ks * 32);
+      if (ks < C::KSV) ldsm_x4(ad, do_addr + ks * 32);
 #pragma unroll
       for (int np = 0; np < C::NT / 2; ++np) {
         uint32_t kf[4], vf[4];
         ldsm_x4(kf, k_base + (np * 16 * LD + ks * 16) * 2);
-        ldsm_x4(vf, v_base + (np * 16 * LD + ks * 16) * 2);
+        if (ks < C::KSV) ldsm_x4(vf, v_base + (np * 16 * LDV + ks * 16) * 2);
         mma_bf16(s[2 * np], aq, kf[0], kf[1]);
         mma_bf16(s[2 * np + 1], aq, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], ad, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], ad, vf[2], vf[3]);
+        if (ks < C::KSV) {
+          mma_bf16(dp[2 * np], ad, vf[0], vf[1]);
+          mma_bf16(dp[2 * np + 1], ad, vf[2], vf[3]);
+        }
       }
     }
 
@@ -647,23 +704,24 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dq_bf16_kernel(cons
   for (int r = 0; r < 2; ++r) {
     const int row = wrow + g + 8 * r;
     if (row >= nq) continue;
-    bf16* out = dqb + (((long long)b * p.Sq + q0 + row) * p.Hq + h) * D + 2 * tg;
+    bf16* out = dqb + (((long long)b * p.Sq + q0 + row) * p.Hq + h) * DK + 2 * tg;
 #pragma unroll
     for (int j = 0; j < C::DT; ++j)
       *reinterpret_cast<uint32_t*>(out + j * 8) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkdv_bf16_kernel(const Params p) {
-  using C = Cfg<D>;
-  constexpr int BK = C::BK, BQT = C::BQT, LD = C::LD, CH = C::CH, THREADS = C::THREADS;
+template <int DK, int DV>
+__global__ void __launch_bounds__(Cfg<DK, DV>::THREADS)
+    flash_bwd_dkdv_bf16_kernel(const Params p) {
+  using C = Cfg<DK, DV>;
+  constexpr int BK = C::BK, BQT = C::BQT, LD = C::LD, LDV = C::LDV, THREADS = C::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);    // BK x LD
-  bf16* sV = sK + BK * LD;                          // BK x LD
-  bf16* sQ = sV + BK * LD;                          // 2 x BQT x LD
-  bf16* sdO = sQ + 2 * BQT * LD;                    // 2 x BQT x LD
-  float* lse_s = reinterpret_cast<float*>(sdO + 2 * BQT * LD);   // 2 x BQT, log2 units
+  bf16* sV = sK + BK * LD;                          // BK x LDV
+  bf16* sQ = sV + BK * LDV;                         // 2 x BQT x LD
+  bf16* sdO = sQ + 2 * BQT * LD;                    // 2 x BQT x LDV
+  float* lse_s = reinterpret_cast<float*>(sdO + 2 * BQT * LDV);  // 2 x BQT, log2 units
   float* dl_s = lse_s + 2 * BQT;                                   // 2 x BQT
 
   const int kt = blockIdx.x;
@@ -688,12 +746,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkdv_bf16_kernel(co
 
   const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh + k0 * p.k_ss;
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh + k0 * p.v_ss;
-  for (int e = tid; e < BK * CH; e += THREADS) {
-    const int r = e / CH, c = (e % CH) * 8;
-    const bool ok = r < nk;
-    cp_async16(smem_u32(sK + r * LD + c), kb + (ok ? r * p.k_ss : 0) + c, ok);
-    cp_async16(smem_u32(sV + r * LD + c), vb + (ok ? r * p.v_ss : 0) + c, ok);
-  }
+  load_pair<DK, DV, BK>(sK, kb, p.k_ss, sV, vb, p.v_ss, nk, tid);
   auto head_of = [&](int i) { return hk * p.group + i / n_qt; };
   auto q0_of = [&](int i) { return (qt_begin + i % n_qt) * BQT; };
   auto load_q = [&](int i, int stage) {
@@ -702,28 +755,28 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkdv_bf16_kernel(co
     const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
     const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh +
                       q0 * p.do_ss;
-    bf16* dq = sQ + stage * BQT * LD;
-    bf16* ddo = sdO + stage * BQT * LD;
-    for (int e = tid; e < BQT * CH; e += THREADS) {
-      const int r = e / CH, c = (e % CH) * 8;
-      const bool ok = r < nq;
-      cp_async16(smem_u32(dq + r * LD + c), qb + (ok ? r * p.q_ss : 0) + c, ok);
-      cp_async16(smem_u32(ddo + r * LD + c), dob + (ok ? r * p.do_ss : 0) + c, ok);
-    }
+    load_pair<DK, DV, BQT>(sQ + stage * BQT * LD, qb, p.q_ss, sdO + stage * BQT * LDV, dob,
+                           p.do_ss, nq, tid);
   };
   if (n_tiles > 0) load_q(0, 0);
   cp_async_commit();                               // group: K, V and the first Q/dO tile
 
   const uint32_t ka_addr = smem_u32(sK + (wrow + (lane & 15)) * LD + (lane >> 4) * 8);
-  const uint32_t va_addr = smem_u32(sV + (wrow + (lane & 15)) * LD + (lane >> 4) * 8);
-  const int nk_lane = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-  const int kn_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+  const uint32_t va_addr = smem_u32(sV + (wrow + (lane & 15)) * LDV + (lane >> 4) * 8);
+  const int nk_row = (lane & 7) + ((lane >> 4) << 3), nk_col = ((lane >> 3) & 1) * 8;
+  const int kn_row = (lane & 7) + (((lane >> 3) & 1) << 3), kn_col = (lane >> 4) * 8;
+  const int nk_lane = nk_row * LD + nk_col, nk_lane_v = nk_row * LDV + nk_col;
+  const int kn_lane = kn_row * LD + kn_col, kn_lane_v = kn_row * LDV + kn_col;
 
-  float dk[C::DT][4], dv[C::DT][4];
+  float dk[C::DT][4], dv[C::DTV][4];
 #pragma unroll
   for (int j = 0; j < C::DT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < C::DTV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[j][e] = 0.f;
   const int kpos = k0 + wrow + g;                  // key of row g
 
   for (int i = 0; i < n_tiles; ++i) {
@@ -744,28 +797,30 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkdv_bf16_kernel(co
     }
     __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T, 16 keys x BQT a warp.
+    // S^T = K Q^T (depth dk) and dP^T = V dO^T (depth dv), 16 keys x BQT a warp.
     float s[C::NQ][4], dp[C::NQ][4];
 #pragma unroll
     for (int j = 0; j < C::NQ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     const uint32_t q_base = smem_u32(sQ + stage * BQT * LD + nk_lane);
-    const uint32_t do_base = smem_u32(sdO + stage * BQT * LD + nk_lane);
+    const uint32_t do_base = smem_u32(sdO + stage * BQT * LDV + nk_lane_v);
 #pragma unroll
     for (int ks = 0; ks < C::KS; ++ks) {
       uint32_t ak[4], av[4];
       ldsm_x4(ak, ka_addr + ks * 32);
-      ldsm_x4(av, va_addr + ks * 32);
+      if (ks < C::KSV) ldsm_x4(av, va_addr + ks * 32);
 #pragma unroll
       for (int np = 0; np < C::NQ / 2; ++np) {
         uint32_t qf[4], df[4];
         ldsm_x4(qf, q_base + (np * 16 * LD + ks * 16) * 2);
-        ldsm_x4(df, do_base + (np * 16 * LD + ks * 16) * 2);
+        if (ks < C::KSV) ldsm_x4(df, do_base + (np * 16 * LDV + ks * 16) * 2);
         mma_bf16(s[2 * np], ak, qf[0], qf[1]);
         mma_bf16(s[2 * np + 1], ak, qf[2], qf[3]);
-        mma_bf16(dp[2 * np], av, df[0], df[1]);
-        mma_bf16(dp[2 * np + 1], av, df[2], df[3]);
+        if (ks < C::KSV) {
+          mma_bf16(dp[2 * np], av, df[0], df[1]);
+          mma_bf16(dp[2 * np + 1], av, df[2], df[3]);
+        }
       }
     }
 
@@ -786,7 +841,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkdv_bf16_kernel(co
 
     // dv += P^T dO and dk += dS^T Q, dO and Q read k x n through .trans.
     const uint32_t qt_base = smem_u32(sQ + stage * BQT * LD + kn_lane);
-    const uint32_t dot_base = smem_u32(sdO + stage * BQT * LD + kn_lane);
+    const uint32_t dot_base = smem_u32(sdO + stage * BQT * LDV + kn_lane_v);
 #pragma unroll
     for (int kk = 0; kk < BQT / 16; ++kk) {
       uint32_t ap[4], ad[4];
@@ -795,10 +850,12 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkdv_bf16_kernel(co
 #pragma unroll
       for (int d2 = 0; d2 < C::DT / 2; ++d2) {
         uint32_t of[4], qf[4];
-        ldsm_x4_trans(of, dot_base + (kk * 16 * LD + d2 * 16) * 2);
+        if (d2 < C::DTV / 2) ldsm_x4_trans(of, dot_base + (kk * 16 * LDV + d2 * 16) * 2);
         ldsm_x4_trans(qf, qt_base + (kk * 16 * LD + d2 * 16) * 2);
-        mma_bf16(dv[2 * d2], ap, of[0], of[1]);
-        mma_bf16(dv[2 * d2 + 1], ap, of[2], of[3]);
+        if (d2 < C::DTV / 2) {
+          mma_bf16(dv[2 * d2], ap, of[0], of[1]);
+          mma_bf16(dv[2 * d2 + 1], ap, of[2], of[3]);
+        }
         mma_bf16(dk[2 * d2], ad, qf[0], qf[1]);
         mma_bf16(dk[2 * d2 + 1], ad, qf[2], qf[3]);
       }
@@ -813,30 +870,33 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) flash_bwd_dkdv_bf16_kernel(co
   for (int r = 0; r < 2; ++r) {
     const int row = wrow + g + 8 * r;
     if (row >= nk) continue;
-    const long long at = (((long long)b * p.Sk + k0 + row) * p.Hkv + hk) * D + 2 * tg;
+    const long long at = ((long long)b * p.Sk + k0 + row) * p.Hkv + hk;
 #pragma unroll
-    for (int j = 0; j < C::DT; ++j) {
-      *reinterpret_cast<uint32_t*>(dkb + at + j * 8) = pack_bf16(dk[j][2 * r], dk[j][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + at + j * 8) = pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
-    }
+    for (int j = 0; j < C::DT; ++j)
+      *reinterpret_cast<uint32_t*>(dkb + at * DK + 2 * tg + j * 8) =
+          pack_bf16(dk[j][2 * r], dk[j][2 * r + 1]);
+#pragma unroll
+    for (int j = 0; j < C::DTV; ++j)
+      *reinterpret_cast<uint32_t*>(dvb + at * DV + 2 * tg + j * 8) =
+          pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+  using C = Cfg<DK, DV>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_SMEM);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16_kernel<DK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::DKV_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.Sq + C::BQ - 1) / C::BQ, p.Hq, B);
-  flash_bwd_dq_bf16_kernel<D><<<grid_q, C::THREADS, C::DQ_SMEM, stream>>>(p);
+  flash_bwd_dq_bf16_kernel<DK, DV><<<grid_q, C::THREADS, C::DQ_SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((p.Sk + C::BK - 1) / C::BK, p.Hkv, B);
-  flash_bwd_dkdv_bf16_kernel<D><<<grid_k, C::THREADS, C::DKV_SMEM, stream>>>(p);
+  flash_bwd_dkdv_bf16_kernel<DK, DV><<<grid_k, C::THREADS, C::DKV_SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -846,72 +906,80 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <int D, typename T>
+template <int DK, int DV, typename T>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  using Tl = Tile<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, T>,
+  using Tl = Tile<DK, DV>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DK, DV, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::DQ_SMEM);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, T>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DK, DV, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::DKV_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.Sq + Tl::BT - 1) / Tl::BT, p.Hq, B);
-  flash_bwd_dq_kernel<D, T><<<grid_q, THREADS, Tl::DQ_SMEM, stream>>>(p);
+  flash_bwd_dq_kernel<DK, DV, T><<<grid_q, THREADS, Tl::DQ_SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((p.Sk + Tl::BT - 1) / Tl::BT, p.Hkv, B);
-  flash_bwd_dkdv_kernel<D, T><<<grid_k, THREADS, Tl::DKV_SMEM, stream>>>(p);
+  flash_bwd_dkdv_kernel<DK, DV, T><<<grid_k, THREADS, Tl::DKV_SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The tensor-core kernels take bf16 at d <= 128; the CUDA-core ones the rest.
+// bf16 runs the tensor-core kernels at dk < 256 ((64, 64), (112, 112),
+// (128, 128), (192, 128)); f32, and bf16 at 256, the CUDA-core ones.
 // dtype: 0 = float32, 1 = bfloat16.
-template <int D>
+template <int DK, int DV>
+constexpr bool on_tensor_cores() { return DK < 256; }
+
+template <int DK, int DV>
 cudaError_t launch(const Params& p, int B, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch<D, float>(p, B, stream);
+  if (dtype == 0) return launch<DK, DV, float>(p, B, stream);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (D <= 128) {
-    return tc::launch<D>(p, B, stream);
+  if constexpr (on_tensor_cores<DK, DV>()) {
+    return tc::launch<DK, DV>(p, B, stream);
   } else {
-    return launch<D, __nv_bfloat16>(p, B, stream);
+    return launch<DK, DV, __nv_bfloat16>(p, B, stream);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int smem_of(int dtype, int kernel) {
   if (dtype != 0 && dtype != 1) return -1;
-  if constexpr (D <= 128) {
-    if (dtype == 1) return kernel == 0 ? tc::Cfg<D>::DQ_SMEM : tc::Cfg<D>::DKV_SMEM;
+  if constexpr (on_tensor_cores<DK, DV>()) {
+    if (dtype == 1) return kernel == 0 ? tc::Cfg<DK, DV>::DQ_SMEM : tc::Cfg<DK, DV>::DKV_SMEM;
   }
-  return kernel == 0 ? Tile<D>::DQ_SMEM : Tile<D>::DKV_SMEM;
+  return kernel == 0 ? Tile<DK, DV>::DQ_SMEM : Tile<DK, DV>::DKV_SMEM;
 }
 
 }  // namespace
 
 // Shared memory a block of the dq kernel (kernel 0) or the dk/dv kernel
-// (kernel 1) takes at head dim D for dtype (0 = float32, 1 = bfloat16); -1
-// if the pair is not taken.
-extern "C" int flash_attention_bwd_smem_bytes(int D, int dtype, int kernel) {
+// (kernel 1) takes at head dims (D, Dv) for dtype (0 = float32,
+// 1 = bfloat16); -1 if the pair is not taken.
+extern "C" int flash_attention_bwd_smem_bytes(int D, int Dv, int dtype, int kernel) {
+  if (D == 192 && Dv == 128) return smem_of<192, 128>(dtype, kernel);
+  if (D != Dv) return -1;
   switch (D) {
-    case 64: return smem_of<64>(dtype, kernel);
-    case 112: return smem_of<112>(dtype, kernel);
-    case 128: return smem_of<128>(dtype, kernel);
-    case 256: return smem_of<256>(dtype, kernel);
+    case 64: return smem_of<64, 64>(dtype, kernel);
+    case 112: return smem_of<112, 112>(dtype, kernel);
+    case 128: return smem_of<128, 128>(dtype, kernel);
+    case 256: return smem_of<256, 256>(dtype, kernel);
     default: return -1;
   }
 }
 
-// Plain C entry point (loaded with ctypes).  Strides of q, k, v, o and do
-// are in elements, their last dim contiguous; for bfloat16 at d <= 128 the
-// data of q, k, v and do must be 16-byte aligned and their batch, row and
-// head strides multiples of 8 (the wrapper checks).  lse and delta are (B,Hq,Sq)
-// f32, contiguous; delta is written.  dq (B,Sq,Hq,D), dk and dv (B,Sk,Hkv,D)
+// Plain C entry point (loaded with ctypes).  q and k are D wide, v, o and do
+// Dv wide; the pairs (D, Dv) taken are (64, 64), (112, 112), (128, 128),
+// (256, 256) and (192, 128).  Strides of q, k, v, o and do are in elements,
+// their last dim contiguous; for bfloat16 at D < 256 the data of q, k, v and
+// do must be 16-byte aligned and their batch, row and head strides multiples
+// of 8 (the wrapper checks).  lse and delta are (B,Hq,Sq) f32, contiguous;
+// delta is written.  dq (B,Sq,Hq,D), dk (B,Sk,Hkv,D) and dv (B,Sk,Hkv,Dv)
 // are written contiguous in the input dtype.  dtype: 0 = float32,
 // 1 = bfloat16.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
-                                   int D, long long q_sb, long long q_ss, long long q_sh,
+                                   int D, int Dv, long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss, long long v_sh,
                                    long long o_sb, long long o_ss, long long o_sh,
@@ -933,11 +1001,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   p.scale_log2 = scale * 1.4426950408889634f;
   p.causal = causal; p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 192 && Dv == 128) return (int)launch<192, 128>(p, B, dtype, s);
+  if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 64: return (int)launch<64>(p, B, dtype, s);
-    case 112: return (int)launch<112>(p, B, dtype, s);
-    case 128: return (int)launch<128>(p, B, dtype, s);
-    case 256: return (int)launch<256>(p, B, dtype, s);
+    case 64: return (int)launch<64, 64>(p, B, dtype, s);
+    case 112: return (int)launch<112, 112>(p, B, dtype, s);
+    case 128: return (int)launch<128, 128>(p, B, dtype, s);
+    case 256: return (int)launch<256, 256>(p, B, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,12 +18,11 @@ raises.  bfloat16 runs the tensor-core kernel, which copies 16 bytes at a
 time, so its inputs need 16-byte-aligned data and batch, row and head
 strides that are multiples of 8 elements (``_check`` raises otherwise;
 nothing is copied); float32 runs the CUDA-core kernel, which takes any
-strides.  The forward takes the head-dim pairs ``FWD_HEAD_DIMS``: v as
-wide as q and k, or q/k 192 and v 128 (MLA); any other pair raises before
-launch.  The backward takes dv = d only (``FlashAttention`` raises for
-dv != d: MoE/MLA training is ROADMAP A15b).  It follows the same rule for
-q, k, v and do: bfloat16
-at head dim 64, 112 or 128 runs tensor-core kernels that copy 16 bytes at a
+strides.  The forward and the backward take the head-dim pairs
+``FWD_HEAD_DIMS``: v as wide as q and k, or q/k 192 and v 128 (MLA); any
+other pair raises before launch.  The backward follows the same rule for
+q, k, v and do: bfloat16 at the pairs of ``BWD_TC_HEAD_DIMS`` (head dim 64,
+112 or 128, and 192 / 128) runs tensor-core kernels that copy 16 bytes at a
 time, and float32 (and bfloat16 at 256) CUDA-core kernels that take any
 strides.  Each function counts
 its own runs in a plain integer attribute (``flash_attention_fwd.launches``,
@@ -43,7 +42,8 @@ HEAD_DIMS = (64, 112, 128, 256)
 # (d of q and k, dv of v and o) the forward kernel takes: dv = d, and
 # DeepSeek-V3's MLA prefill (128 nope + 64 rope for q/k, 128 for v).
 FWD_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
-BWD_TC_HEAD_DIMS = (64, 112, 128)   # bf16 backward on the tensor cores
+# (d, dv) pairs whose bf16 backward runs on the tensor cores.
+BWD_TC_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -231,10 +231,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sca
                               block_q=128, block_k=128):
     """The gradient of attention by explicit recompute from lse, in torch
     ops: the same function as the backward kernel (not autograd of the
-    forward).  q, o, do: (B,Sq,Hq,d); k, v: (B,Sk,Hkv,d); lse: (B,Hq,Sq) f32.
-    Returns (dq, dk, dv) in the dtypes of q, k and v.  f32 math throughout:
+    forward).  q: (B,Sq,Hq,d); k: (B,Sk,Hkv,d); v: (B,Sk,Hkv,dv); o, do:
+    (B,Sq,Hq,dv); lse: (B,Hq,Sq) f32.  Returns (dq, dk, dv) in the dtypes of
+    q, k and v.  f32 math throughout:
 
-        delta = rowsum(do * o),  P = exp(scale q k^T - lse),
+        delta = rowsum(do * o) (over dv),  P = exp(scale q k^T - lse),
         dS = P (do v^T - delta) scale,  dq = dS k,  dk = dS^T q,  dv = P^T do,
 
     with dk and dv summed over the query heads of each GQA group; only tile
@@ -286,7 +287,7 @@ flash_attention_bwd_plain.calls = 0
 def bind_bwd(lib: ctypes.CDLL):
     """The C entry point ``flash_attention_bwd`` of a built library, typed."""
     fn = lib.flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 15
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
@@ -303,15 +304,16 @@ def _bwd_kernel_fn():
 
 def _check_bwd(q, k, v, o, lse, do):
     _check_qkv(q, k, v)
-    if v.shape[3] != q.shape[3]:
-        raise NotImplementedError(_NO_BWD_DV.format(q.shape[3], v.shape[3]))
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} not supported by the backward kernel "
-                         f"(takes {HEAD_DIMS})")
+    pair = (q.shape[3], v.shape[3])
+    if pair not in FWD_HEAD_DIMS:
+        raise ValueError(f"head dims (d {pair[0]}, dv {pair[1]}) not supported by the "
+                         f"backward kernel (takes {FWD_HEAD_DIMS})")
+    out_shape = q.shape[:3] + (v.shape[3],)
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q {tuple(q.shape)} {q.dtype} on {q.device}; "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if t.shape != out_shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {tuple(out_shape)} {q.dtype} on {q.device} "
+                             f"(q's rows at v's width); got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"the last dim of {name} must be contiguous")
     B, Sq, Hq, _ = q.shape
@@ -319,7 +321,7 @@ def _check_bwd(q, k, v, o, lse, do):
             or lse.device != q.device):
         raise ValueError(f"lse must be contiguous float32 ({B}, {Hq}, {Sq}) on {q.device}; "
                          f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    if q.dtype == torch.bfloat16 and q.shape[3] in BWD_TC_HEAD_DIMS:
+    if q.dtype == torch.bfloat16 and pair in BWD_TC_HEAD_DIMS:
         _check_bf16_alignment(q=q, k=k, v=v, do=do)
 
 
@@ -327,10 +329,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=Non
     """Attention backward, (dq, dk, dv), from the forward's inputs, its o and
     lse, and the output gradient do.
 
-    On CUDA tensors this launches the Hopper kernels (head dim 64, 112, 128
-    or 256; float32 or bfloat16; last dims contiguous; for bfloat16 at head
-    dim 64 to 128, 16-byte aligned data and strides in multiples of 8) on the
-    current stream.  do is made contiguous first: autograd may hand over any
+    On CUDA tensors this launches the Hopper kernels ((d, dv) in
+    ``FWD_HEAD_DIMS``; float32 or bfloat16; last dims contiguous; for
+    bfloat16 at the pairs of ``BWD_TC_HEAD_DIMS``, 16-byte aligned data and
+    strides in multiples of 8, which MLA's v, a view of the decompressed
+    (B,S,H,dn+dv) buffer, meets) on the current stream.  do is made contiguous first: autograd may hand over any
     layout.  CPU tensors go to :func:`flash_attention_bwd_plain`.  Any other
     device raises."""
     if q.device.type == "cpu":
@@ -351,16 +354,16 @@ def launch_bwd(fn, q, k, v, o, lse, do, *, causal, window, scale):
     ctypes binding of the C entry point ``flash_attention_bwd``, on checked
     CUDA tensors; raise if a launch fails."""
     B, Sq, Hq, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, d_v = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     dq = torch.empty((B, Sq, Hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, Hkv, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Sk, Hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, Hkv, d_v), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B, Sq, Sk, Hq, Hkv, d,
+                B, Sq, Sk, Hq, Hkv, d, d_v,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                 *do.stride()[:3],
                 float(scale), int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
@@ -373,21 +376,14 @@ def launch_bwd(fn, q, k, v, o, lse, do, *, causal, window, scale):
 flash_attention_bwd.launches = 0
 
 
-_NO_BWD_DV = ("attention backward with d {} != dv {}: the backward kernel takes dv = d "
-              "only; MoE/MLA training is ROADMAP A15b")
-
-
 class FlashAttention(torch.autograd.Function):
     """softmax(scale q k^T) v with a gradient: the forward runs
     :func:`flash_attention_fwd` and keeps (q, k, v, o, lse); the backward
     runs :func:`flash_attention_bwd` on them.  Both dispatch by device, so
-    CPU tensors take the plain versions and CUDA tensors the kernels.  v
-    must be as wide as q and k (dv != d raises, on every device)."""
+    CPU tensors take the plain versions and CUDA tensors the kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(_NO_BWD_DV.format(q.shape[-1], v.shape[-1]))
         o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, scale)

@@ -12,11 +12,10 @@ attention, RWKV-6):
     prefill(params, cache, tokens (B,S)) -> (cache, logits (B,V))
     decode_step(params, cache, tokens (B,)) -> (cache, logits (B,V))
 
-``loss`` is ported for the dense decoder, the hybrid and RWKV-6; its
-backward runs the flash attention, SSD-scan and WKV6 backward kernels on the
-card.  The MoE / MLA decoders (moonshot-v1-16b-a3b, deepseek-v3-671b) serve
-only: their ``loss``, ``input_specs`` and ``dummy_batch`` raise, naming
-ROADMAP A15b.
+``loss`` is ported for every family here: the dense and MoE / MLA decoders
+(moonshot-v1-16b-a3b, deepseek-v3-671b: with the MoE load-balancing and MTP
+losses), the hybrid and RWKV-6; its backward runs the flash attention (at
+d 192 / dv 128 under MLA), SSD-scan and WKV6 backward kernels on the card.
 
 ``device`` defaults to ``cuda``; with no card the build raises unless the
 caller asks for ``device="cpu"``.
@@ -63,8 +62,6 @@ RWKV = Family(rwkv_model.RWKV, rwkv_model.rwkv_init_cache,
               rwkv_model.rwkv_prefill, rwkv_model.rwkv_decode_step)
 
 _LATER = (("enc_layers", "encoder-decoder: ROADMAP A18"),)
-# Families that serve but do not train yet.
-_SERVE_ONLY = (("n_experts", "MoE"), ("mla", "MLA"), ("mtp_depth", "MTP"))
 
 
 def family_of(cfg: ModelConfig) -> Family:
@@ -97,13 +94,6 @@ class Model:
     def family(self) -> Family:
         return family_of(self.cfg)
 
-    def _trains(self) -> None:
-        """Raise for a config whose training is not ported yet."""
-        for flag, what in _SERVE_ONLY:
-            if getattr(self.cfg, flag):
-                raise NotImplementedError(f"{self.cfg.name}: {what} serves in the port but "
-                                          f"does not train yet (ROADMAP A15b)")
-
     def init(self):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
@@ -128,13 +118,11 @@ class Model:
     def loss(self, params, batch: dict):
         """(scalar loss, metrics) of a batch {"tokens": (B, S)}; differentiable.
         Called through the module (its ``forward``), so hooks on it run."""
-        self._trains()
         return params(batch, self.opts)
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         """Allocation-free stand-ins (tensors on the ``meta`` device) for every
         model input of a (shape x step-kind) cell; tokens are int64."""
-        self._trains()
         B, S = shape.global_batch, shape.seq_len
         dims = (B,) if shape.kind == "decode" else (B, S)
         return {"tokens": torch.empty(dims, dtype=torch.long, device="meta")}
@@ -142,7 +130,6 @@ class Model:
     def dummy_batch(self, shape: ShapeConfig, gen: torch.Generator | None = None) -> dict:
         """A batch of random token ids in [0, vocab) on the model's device,
         from ``gen`` (seed 0 when not given)."""
-        self._trains()
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
         return {k: torch.randint(0, self.cfg.vocab_size, spec.shape, generator=gen,

@@ -25,8 +25,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
               scale: float | None = None) -> torch.Tensor:
     """q: (B,Sq,Hq,d); k: (B,Sk,Hkv,d); v: (B,Sk,Hkv,dv) -> (B,Sq,Hq,dv).
     Query row i sits at key position Sk - Sq + i; ``scale`` defaults to
-    1/sqrt(d).  dv != d (MLA) is served only: with a gradient it raises
-    (ROADMAP A15b)."""
+    1/sqrt(d).  (d, dv) is a pair the kernels take: d = dv, or 192 / 128
+    (MLA), with a gradient too."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, scale)
     o, _ = flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)

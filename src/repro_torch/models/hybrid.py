@@ -84,7 +84,7 @@ def _layer_apply(lp: SSMLayer, shared: Block, x, cfg: ModelConfig, positions,
     """One SSM layer over a full sequence, then the shared block where it
     applies: the unit the reference checkpoints under ``remat="full"``."""
     x = x + mamba2.mamba2_apply(lp.mixer, nn.rmsnorm(x, lp.ln, cfg.norm_eps), cfg)
-    return block_apply(shared, x, cfg, positions) if with_shared else x
+    return block_apply(shared, x, cfg, positions)[0] if with_shared else x
 
 
 def hybrid_forward(params: Hybrid, batch: dict, cfg: ModelConfig, opts: ModelOpts):

@@ -6,8 +6,13 @@ through a rank-``kv_lora_rank`` latent ``c_kv`` plus one rope key ``k_pe``
 shared by the heads.  Prefill decompresses the latent to per-head K (nope
 and rope, 192 wide in DeepSeek-V3) and V (128 wide) and calls the port's
 ``attention``, which on the card is the flash forward kernel at
-d 192 / dv 128.  Decode caches only (c_kv, k_pe) and scores in latent space
-with the absorbed weights W_uk / W_uv, in f32 as the reference does.
+d 192 / dv 128, with its backward kernel at the same pair in training.  v is
+a strided view of the decompressed (B,S,H,dn+dv) buffer, handed to the
+kernels as it is: at DeepSeek-V3's widths it meets the bf16 kernels' rule
+(16-byte-aligned data, strides in multiples of 8 elements), and a width that
+did not would raise there, naming the tensor, rather than be copied.  Decode
+caches only (c_kv, k_pe) and scores in latent space with the absorbed
+weights W_uk / W_uv, in f32 as the reference does.
 """
 
 from __future__ import annotations

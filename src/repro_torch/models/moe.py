@@ -7,24 +7,37 @@ renormalised; a fixed capacity per expert (the reference's expression,
 rounded up to 8); a stable sort of the (token, choice) pairs by expert, each
 pair's rank within its expert found by ``searchsorted(side="left")``, and
 the pairs ranked at or past the capacity dropped (the reference sends them
-to a trash slot at index ``capacity``).  The kept tokens are scattered into
+to a trash slot at index ``capacity``).  The kept tokens are written into
 a zeroed (E, capacity, D) buffer, the experts run as two batched products
 over it (``torch.bmm``: plain large matrix products, which the reference
 computes outside any Pallas kernel), and each token's kept slots are
 combined in f32 and cast to x's dtype, then the shared experts are added.
+``moe_apply`` also returns the Switch load-balancing loss, E * sum(mean
+probability x share of tokens routed) over each chunk, meaned over chunks;
+it and the output carry gradients to x, the router and the experts.
 
-Two places differ from the literal reference and give the same function:
+Three places differ from the literal reference and give the same function:
 
   * top-k is a stable descending sort of the probabilities, so ties go to
     the lower expert index as in ``jax.lax.top_k`` (``torch.topk`` does not
-    promise that order on CUDA);
+    promise that order on CUDA), and the gates are the probabilities
+    gathered at the picks;
   * the combine gathers each token's K gated slot outputs (a zero row for a
     dropped pick) and sums them, a fixed-order reduction, where the
     reference scatter-adds slot outputs into their tokens; an
     ``index_add_`` would add with float atomics on CUDA, in no fixed order.
     So the combine is bit-repeatable on the card, and greedy decoding is
     too.  The f32 sums of K terms differ from the reference's order by
-    rounding only (~1e-7 relative).
+    rounding only (~1e-7 relative);
+  * the dispatch (:class:`Dispatch`) is an autograd function whose backward
+    gathers each token's K slot gradients and sums them in the same fixed
+    order, where autograd's backward of ``xc[tok_of]`` would add them by
+    an accumulating index-put.  So a train step is bit-repeatable too.
+
+Under ``remat="full"`` a block's forward runs again in the backward
+(``torch.utils.checkpoint``); :func:`remat_contexts` makes the recompute
+take the picks the first pass made (the reference's recompute finds them
+again from the same inputs), without touching ``ROUTE_LOG``.
 
 A pick is a discontinuous function of the router's input: two runs whose
 hidden states differ by bf16 rounding (the card and the CPU, or the port
@@ -36,6 +49,8 @@ same inputs and the rest of the model to the other run under one routing.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -94,20 +109,75 @@ class RouteLog:
 
 ROUTE_LOG: RouteLog | None = None
 
+# The picks of the checkpointed block running now: a list its forward
+# appends to, or an iterator its recompute takes them from (remat_contexts).
+_RECORD: list | None = None
+_REPLAY = None
+
+
+@contextlib.contextmanager
+def _remat_picks(record: list | None = None, replay: list | None = None):
+    global _RECORD, _REPLAY
+    saved = _RECORD, _REPLAY
+    _RECORD, _REPLAY = record, (iter(replay) if replay is not None else None)
+    try:
+        yield
+    finally:
+        _RECORD, _REPLAY = saved
+
+
+def remat_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint`` around one block: (the
+    forward's context, which records the block's picks, the recompute's,
+    which replays them), so the recompute routes every token as the forward
+    did.  Either pass computes the same tensors for the backward: the gates
+    are gathered at the picks in both."""
+    picks: list[torch.Tensor] = []
+    return _remat_picks(record=picks), _remat_picks(replay=picks)
+
 
 def route(router: torch.Tensor, xc: torch.Tensor, top_k: int):
     """(probs (T, E) f32, gates (T, K) f32 renormalised, eidx (T, K)): the
-    router in f32, softmax, and the top k with ties to the lower index."""
+    router in f32, softmax, and the top k with ties to the lower index
+    (a checkpointed block's recompute takes its forward's picks instead)."""
     probs = torch.softmax(xc.float() @ router.float(), dim=-1)
-    top, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, eidx = top[:, :top_k], eidx[:, :top_k]
-    log = ROUTE_LOG
-    if log is not None:
-        if log.replay:
-            eidx = log.replay.pop(0).to(eidx.device)
-            gates = probs.gather(1, eidx)
-        log.seen.append((xc, probs, eidx))
+    if _REPLAY is not None:
+        eidx = next(_REPLAY)
+    else:
+        eidx = torch.sort(probs.detach(), dim=-1, descending=True,
+                          stable=True).indices[:, :top_k]
+        log = ROUTE_LOG
+        if log is not None:
+            if log.replay:
+                eidx = log.replay.pop(0).to(eidx.device)
+            log.seen.append((xc, probs, eidx))
+        if _RECORD is not None:
+            _RECORD.append(eidx)
+    gates = probs.gather(1, eidx)
     return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), eidx
+
+
+class Dispatch(torch.autograd.Function):
+    """The experts' capacity buffer (n_rows, D) from the chunk's tokens xc
+    (T, D): row ``slot[t, k]`` holds token t for each kept pick; a dropped
+    pick points at row n_rows, which is cut off.  The gradient of token t is
+    the sum of its K rows' gradients, gathered and summed in a fixed order
+    (a dropped pick adds a zero row), so it is the same bits from run to
+    run on the card."""
+
+    @staticmethod
+    def forward(ctx, xc: torch.Tensor, slot: torch.Tensor, n_rows: int):
+        T, K = slot.shape
+        buf = xc.new_zeros((n_rows + 1, xc.shape[1]))
+        buf[slot.reshape(-1)] = xc.repeat_interleave(K, dim=0)
+        ctx.save_for_backward(slot)
+        return buf[:n_rows]
+
+    @staticmethod
+    def backward(ctx, grad_buf: torch.Tensor):
+        (slot,) = ctx.saved_tensors
+        g = F.pad(grad_buf, (0, 0, 0, 1))                       # row n_rows: zeros
+        return g[slot].float().sum(1).to(grad_buf.dtype), None, None
 
 
 def expert_ffn(p: MoE, buf: torch.Tensor, act: str) -> torch.Tensor:
@@ -135,23 +205,23 @@ def _one_chunk(p: MoE, xc: torch.Tensor, cfg: ModelConfig, capacity: int):
     flat_e = eidx.reshape(-1)                                   # (T*K,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    tok_of = order // K                                         # token of each sorted pair
     pos = torch.arange(T * K, device=xc.device) - torch.searchsorted(
         sorted_e, sorted_e, side="left")                        # rank within its expert
     keep = pos < capacity
-    pos_t = torch.where(keep, pos, capacity)                    # dropped: the trash slot
+
+    # Each (token, choice) pair's slot, E*capacity (the trash row) if dropped.
+    slot = torch.empty_like(flat_e)
+    slot[order] = torch.where(keep, sorted_e * capacity + pos, E * capacity)
+    slot = slot.view(T, K)
 
     # Zeroed, as the reference's: a slot no pick fills runs its expert on
     # zeros, so every output row is finite.
-    buf = torch.zeros((E, capacity + 1, D), dtype=xc.dtype, device=xc.device)
-    buf[sorted_e, pos_t] = xc[tok_of]
-    out = expert_ffn(p, buf[:, :capacity], cfg.act).reshape(E * capacity, D)
+    buf = Dispatch.apply(xc, slot, E * capacity).view(E, capacity, D)
+    out = expert_ffn(p, buf, cfg.act).reshape(E * capacity, D)
     out = F.pad(out, (0, 0, 0, 1))                              # row E*capacity: zeros
 
-    # Each (token, choice) pair's slot output, the zero row if it was dropped.
-    slot = torch.empty_like(flat_e)
-    slot[order] = torch.where(keep, sorted_e * capacity + pos, E * capacity)
-    y = (out[slot.view(T, K)].float() * gates[..., None]).sum(1)
+    # Each pair's slot output (the zero row if it was dropped), gated.
+    y = (out[slot].float() * gates[..., None]).sum(1)
     return y.to(xc.dtype), aux
 
 

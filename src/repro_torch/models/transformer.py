@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: the torch twin of ``repro.models.transformer``
-for training (forward + loss; the dense branch) and serving (prefill +
-decode; the dense branch and the MoE / MLA branches of the reference).
+for training (forward + loss) and serving (prefill + decode), for the dense
+branch and the MoE / MLA branches of the reference.
 
 Parameters live in ``nn.Module``s with the reference's names and (in, out)
 layouts; where the reference stacks layers on a leading axis and scans,
@@ -10,9 +10,10 @@ unstacks).  A dense model has one group, ``layers``.  A MoE model
 with the dense FFN) and ``moe_layers`` (with :class:`~repro_torch.models.moe.MoE`
 in place of the FFN), walked in that order; under ``cfg.mla`` every block's
 attention is :class:`~repro_torch.models.mla.MLA`.  The multi-token
-prediction block ``mtp`` (``cfg.mtp_depth``) is built and carried across
-but, as in the reference, unused when serving.  Training of the MoE / MLA
-branches is ROADMAP A15b; the vision frontend is A18.
+prediction block ``mtp`` (``cfg.mtp_depth``) adds its loss in training and
+is, as in the reference, unused when serving.  A MoE model's loss adds the
+Switch load-balancing loss of its MoE layers.  The vision frontend is
+ROADMAP A18.
 
 The KV cache is ``{"pos": int, <group>: {"k": (L,B,S,Hkv,hd), "v": ...}}``
 for each layer group (under MLA ``{"c": (L,B,S,kv_lora_rank), "pe":
@@ -43,24 +44,28 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.mla import MLA, mla_decode, mla_prefill
-from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.mla import MLA, mla_attention, mla_decode, mla_prefill
+from repro_torch.models.moe import MoE, moe_apply, remat_contexts
 
 
 @dataclass(frozen=True)
 class ModelOpts:
-    """Runtime knobs (not architecture): the three of the reference's that
-    act in the port.  ``remat`` is "none" or "full" (each block's activations
+    """Runtime knobs (not architecture): those of the reference's that act
+    in the port.  ``remat`` is "none" or "full" (each block's activations
     are recomputed in the backward, by ``torch.utils.checkpoint``);
     ``loss_chunk`` is the sequence chunk of the cross-entropy (0: one piece);
-    ``moe_token_chunk`` is the MoE dispatch chunk in tokens.  The reference's
-    ``attn_schedule`` has no twin: the attention kernels visit only the
-    tiles of the causal/window band, which is what its "triangle" schedule
-    buys.  Its MTP and aux-loss knobs come with MoE / MLA training (ROADMAP
-    A15b)."""
+    ``moe_token_chunk`` is the MoE dispatch chunk in tokens; ``mtp`` turns
+    the multi-token-prediction loss on, weighted by ``mtp_loss_weight``;
+    ``aux_loss_weight`` weights the MoE load-balancing loss.  The
+    reference's ``attn_schedule`` has no twin: the attention kernels visit
+    only the tiles of the causal/window band, which is what its "triangle"
+    schedule buys."""
     remat: str = "none"              # none | full
     loss_chunk: int = 2048
     moe_token_chunk: int = 65536
+    mtp: bool = True
+    aux_loss_weight: float = 0.01
+    mtp_loss_weight: float = 0.3
 
 
 class Attention(tnn.Module):
@@ -126,19 +131,21 @@ class Block(tnn.Module):
         self.attn.reset_parameters(gen)
         (self.moe if hasattr(self, "moe") else self.mlp).reset_parameters(gen)
 
-    def forward(self, x, cfg: ModelConfig, positions, remat: bool = False,
+    def forward(self, x, cfg: ModelConfig, positions, opts: ModelOpts,
                 tp: nn.TP | None = None):
-        """The block over a full sequence; under ``remat`` its activations are
-        recomputed in the backward."""
-        if remat:
-            return checkpoint(block_apply, self, x, cfg, positions, tp, use_reentrant=False)
-        return block_apply(self, x, cfg, positions, tp)
+        """(x, aux) of the block over a full sequence; under ``remat="full"``
+        its activations are recomputed in the backward, a MoE block's under
+        the picks of its forward (``moe.remat_contexts``)."""
+        if opts.remat == "full":
+            return checkpoint(block_apply, self, x, cfg, positions, opts, tp,
+                              use_reentrant=False, context_fn=remat_contexts)
+        return block_apply(self, x, cfg, positions, opts, tp)
 
 
 class MTP(tnn.Module):
     """The multi-token-prediction block: proj (2D, D), ln_h, ln_e (D,) and
-    one dense block.  Carried across with the weights; serving does not run
-    it (its loss is ROADMAP A15b)."""
+    one dense block.  Training adds its loss (:func:`decoder_loss`);
+    serving does not run it."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -246,19 +253,30 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, k_cache, v_cache, length: int
 # Training forward and loss
 # ---------------------------------------------------------------------------
 
-def block_apply(lp: Block, x, cfg: ModelConfig, positions, tp: nn.TP | None = None):
-    """Pre-norm residual block over a full sequence."""
+def block_apply(lp: Block, x, cfg: ModelConfig, positions, opts: ModelOpts | None = None,
+                tp: nn.TP | None = None):
+    """Pre-norm residual block over a full sequence.  Returns (x, aux): the
+    MoE's load-balancing loss in a MoE block, 0.0 in a dense one."""
     B, S, _ = x.shape
     h = nn.tp_copy(nn.rmsnorm(x, lp.ln1, cfg.norm_eps), tp)
-    q, k, v = qkv(lp.attn, h, cfg, positions, tp)
-    o = attention(q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + nn.tp_reduce(o.reshape(B, S, -1) @ lp.attn.wo, tp)
+    if cfg.mla:
+        a = mla_attention(lp.attn, h, cfg, positions)
+    else:
+        q, k, v = qkv(lp.attn, h, cfg, positions, tp)
+        a = attention(q, k, v, causal=True, window=cfg.sliding_window).reshape(B, S, -1) \
+            @ lp.attn.wo
+    x = x + nn.tp_reduce(a, tp)
     h = nn.tp_copy(nn.rmsnorm(x, lp.ln2, cfg.norm_eps), tp)
-    return x + nn.tp_reduce(nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act), tp)
+    if hasattr(lp, "moe"):
+        f, aux = moe_apply(lp.moe, h, cfg, (opts or ModelOpts()).moe_token_chunk)
+        return x + f, aux
+    return x + nn.tp_reduce(nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act), tp), 0.0
 
 
 def decoder_forward(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts):
-    """Hidden states (B, S, D) after the final norm.  Under ``remat="full"``
+    """(hidden states (B, S, D) after the final norm, aux): the layer groups
+    of :func:`layer_groups` in order, aux the sum of their MoE layers'
+    load-balancing losses (0.0 without MoE layers).  Under ``remat="full"``
     each block is recomputed in the backward (the port's form of the
     reference's ``jax.checkpoint`` around the scanned block), so the
     attention forward runs twice per layer."""
@@ -267,23 +285,54 @@ def decoder_forward(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelO
     tp = params.tp
     x = nn.embed_lookup(params.emb, batch["tokens"], tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for lp in params.layers:
-        x = lp(x, cfg, positions, opts.remat == "full", tp)
-    return nn.rmsnorm(x, params.ln_f, cfg.norm_eps)
+    aux = 0.0
+    for name, _ in layer_groups(cfg):
+        for lp in getattr(params, name):
+            x, a = lp(x, cfg, positions, opts, tp)
+            aux = aux + a
+    return nn.rmsnorm(x, params.ln_f, cfg.norm_eps), aux
 
 
 def decoder_loss(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts):
     """Next-token CE: labels are the tokens rolled left by one, the last
-    position masked.  Returns (loss, {"ce": loss})."""
+    position masked; a MoE model adds ``aux_loss_weight`` x its
+    load-balancing loss, and with ``cfg.mtp_depth`` and ``opts.mtp`` the MTP
+    block predicts the token after next (labels rolled by two, the last two
+    masked) from the final hidden state and the next token's embedding,
+    weighted by ``mtp_loss_weight``; the MTP block is not rematerialised, as
+    the reference applies it outside its checkpointed scan.  Returns (loss,
+    {"ce"[, "aux"][, "mtp"]})."""
     tokens = batch["tokens"]
-    h = decoder_forward(params, batch, cfg, opts)
+    h, aux = decoder_forward(params, batch, cfg, opts)
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     tp = params.tp
-    loss = nn.cross_entropy_loss(lambda hh: params.logits(nn.tp_copy(hh, tp)), h, labels,
-                                 mask, chunk=opts.loss_chunk, tp=tp)
-    return loss, {"ce": loss}
+
+    def logits(hh):
+        return params.logits(nn.tp_copy(hh, tp))
+
+    loss = nn.cross_entropy_loss(logits, h, labels, mask, chunk=opts.loss_chunk, tp=tp)
+    metrics = {"ce": loss}
+    if cfg.n_experts:
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+        loss = loss + opts.aux_loss_weight * aux
+        metrics["aux"] = aux
+    if cfg.mtp_depth and opts.mtp:
+        mtp = params.mtp
+        e_next = nn.embed_lookup(params.emb, torch.roll(tokens, -1, dims=1), tp)
+        hin = torch.cat([nn.rmsnorm(h, mtp.ln_h, cfg.norm_eps),
+                         nn.rmsnorm(e_next, mtp.ln_e, cfg.norm_eps)], dim=-1)
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        hm, _ = block_apply(mtp.layer, hin @ mtp.proj, cfg, positions, opts, tp)
+        labels2 = torch.roll(tokens, -2, dims=1)
+        mask2 = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+        mask2[:, -2:] = 0.0
+        mtp_loss = nn.cross_entropy_loss(logits, hm, labels2, mask2, chunk=opts.loss_chunk,
+                                         tp=tp)
+        loss = loss + opts.mtp_loss_weight * mtp_loss
+        metrics["mtp"] = mtp_loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,9 @@ that runs on every rank of the mesh:
 
 ``pp > 1`` (GPipe), ``sp`` and TP outside the dense family raise
 ``NotImplementedError`` naming ROADMAP A14b; so does a TP degree that would
-split a head.
+split a head, and any plan of the MoE family (whose layout across a mesh,
+expert sharding among it, has not been held to the reference's): it trains
+through ``make_train_step`` on one device.
 """
 
 from __future__ import annotations
@@ -94,6 +96,10 @@ def make_train_step(model: Model, plan: ExecutionPlan, optcfg: OptConfig):
 def check_plan(cfg: ModelConfig, plan: ExecutionPlan) -> None:
     """Raise for what the port's plans do not do yet: nothing is ignored."""
     plan.validate()
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: the MoE family's plans across a mesh (DP, "
+                                  f"ZeRO, offload, TP, expert sharding) are not ported yet "
+                                  f"(ROADMAP A14b); make_train_step trains it on one device")
     if plan.pp > 1:
         raise NotImplementedError(f"pp={plan.pp}: pipeline parallelism (GPipe, "
                                   f"parallel/pipeline.py) is not ported yet (ROADMAP A14b)")

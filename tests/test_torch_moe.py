@@ -12,8 +12,7 @@ and deepseek-v3-671b, prefill and 4 decode steps with their caches, against
 the JAX model on converted weights; the port's decode against its own
 prefill; the group-aware weight conversion bit for bit; the flash
 forward's plain version at d 192 / dv 128 against the reference's
-``attention``; and the refusals of the paths still to port (training,
-ROADMAP A15b).
+``attention``; and the head-dim pairs the backward refuses.
 
 A pick is a discontinuous function of the router's input, and bf16 rounding
 differs between the frameworks (the reference's tiled attention rounds its
@@ -432,25 +431,20 @@ def test_kernel_refuses_other_head_dim_pairs(d, dv):
         _check(q, k, v)
 
 
-def test_training_raises_naming_a15b():
-    """Model.loss, input_specs and dummy_batch on a MoE / MLA config, and the
-    autograd attention with dv != d, raise naming ROADMAP A15b."""
-    from repro_torch.configs.base import ShapeConfig
+@pytest.mark.parametrize("d,dv", [(192, 64), (128, 64), (96, 96), (192, 192), (128, 192)])
+def test_backward_refuses_other_head_dim_pairs(d, dv):
+    """The backward takes the forward's pairs, (192, 128) among them; any
+    other raises before launch."""
+    from repro_torch.kernels.flash_attention import _check_bwd
 
-    for arch in MOE_ARCHS:
-        m = build(configs.get_reduced(arch), device="cpu")
-        params = m.init()
-        shape = ShapeConfig("t", 8, 2, "train")
-        with pytest.raises(NotImplementedError, match="A15b"):
-            m.loss(params, {"tokens": torch.zeros((2, 8), dtype=torch.long)})
-        with pytest.raises(NotImplementedError, match="A15b"):
-            m.input_specs(shape)
-        with pytest.raises(NotImplementedError, match="A15b"):
-            m.dummy_batch(shape)
-    q = torch.randn(1, 8, 2, 192, requires_grad=True)
-    k, v = torch.randn(1, 8, 2, 192), torch.randn(1, 8, 2, 128)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        attention(q, k, v)
+    q, k = torch.zeros(1, 8, 2, d), torch.zeros(1, 8, 2, d)
+    v, o = torch.zeros(1, 8, 2, dv), torch.zeros(1, 8, 2, dv)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match=f"head dims \\(d {d}, dv {dv}\\) not supported by "
+                                         f"the backward"):
+        _check_bwd(q, k, v, o, lse, o)
+    qk, vo = torch.zeros(1, 8, 2, 192), torch.zeros(1, 8, 2, 128)
+    _check_bwd(qk, qk, vo, vo, lse, vo)                 # MLA's pair passes
 
 
 @pytest.mark.parametrize("arch,extra", [("moonshot-v1-16b-a3b", []),

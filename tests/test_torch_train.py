@@ -25,9 +25,24 @@
   gradients lie as far from f32 as the port's).  So there each bf16
   gradient is held to JAX's at 5e-2 plus twice JAX's own distance from the
   f32 gradient of the same weights on that leaf.
+* The MoE / MLA training path (moonshot-v1-16b-a3b, deepseek-v3-671b): the
+  plain backward at d 192 / dv 128 (and ``FlashAttention`` through it)
+  against ``jax.vjp`` of the reference's ``attention`` at MLA's scale
+  1/sqrt(192), f32 2e-4; ``Model.loss``, its metrics (ce, aux, mtp) and
+  every gradient against ``jax.value_and_grad`` of the reference's
+  ``decoder_loss`` at the bounds above, bf16 under the reference's expert
+  picks (replayed through ``moe.ROUTE_LOG``: a near-tie flips on bf16
+  rounding, see tests/test_torch_moe.py), f32 on the port's own; each
+  option (``mtp=False``, ``aux_loss_weight=0``, ``remat="full"``, a chunked
+  CE, a ``moe_token_chunk`` that splits the tokens) in f32.
 * ``gpu``: the backward kernel against its plain version on the card, and a
-  3-step train of a cut llama on the card against the CPU.
+  3-step train of a cut llama on the card against the CPU; the same at
+  d 192 / dv 128, the cut MoE models trained on the card against the CPU
+  (under the CPU's picks) and a MoE train step repeated bit for bit.
 """
+
+import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -46,8 +61,9 @@ from repro_torch.convert import params_from_jax_numpy
 from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
-from repro_torch.models import ModelOpts, build
+from repro_torch.models import ModelOpts, build, moe
 from repro_torch.train import optimizer as topt
+from test_torch_moe import jax_picks, route_log
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -266,6 +282,183 @@ def test_ssm_loss_options_match_jax(arch, opts):
     _check_loss_and_grads(arch, "float32", JModelOpts(**opts), ModelOpts(**opts))
 
 
+# ---------------------------------------------------------------------------
+# MoE / MLA training
+# ---------------------------------------------------------------------------
+
+MLA_DIMS = (192, 128)
+# (label, B, Sq, Sk, Hq, Hkv, causal, JAX tiles (cq, ck)) at d 192 / dv 128
+MLA_BWD_CASES = [
+    ("causal", 2, 40, 40, 2, 2, True, (8, 20)),
+    ("Sq < Sk", 2, 24, 72, 2, 2, True, (8, 24)),
+    ("ragged S=17 GQA 4:2", 1, 17, 17, 4, 2, True, (17, 17)),
+]
+
+
+@pytest.mark.parametrize("case", MLA_BWD_CASES, ids=[c[0] for c in MLA_BWD_CASES])
+def test_plain_backward_at_192_128_matches_jax_vjp(case):
+    """The gradient the MLA attention takes: q, k 192 wide, v 128, scale
+    1/sqrt(192), against jax.vjp of the reference's attention, and through
+    FlashAttention (the autograd path the port's model takes)."""
+    _, B, Sq, Sk, Hq, Hkv, causal, (cq, ck) = case
+    d, dv = MLA_DIMS
+    rng = np.random.default_rng(11)
+    q, k, v, do = (rng.normal(0, 1, s).astype(np.float32) for s in (
+        (B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, dv), (B, Sq, Hq, dv)))
+    scale = 1.0 / np.sqrt(d)
+    want = jax.vjp(lambda a, b, c: jattention(a, b, c, causal=causal, chunk_q=cq, chunk_k=ck,
+                                              scale=scale), *map(jnp.asarray, (q, k, v))
+                   )[1](jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attention_plain(tq, tk, tv, causal=causal, scale=scale)
+    tiled = flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal=causal, scale=scale,
+                                      block_q=16, block_k=32)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = FlashAttention.apply(*leaves, causal, 0, scale)
+    assert out.shape == (B, Sq, Hq, dv)
+    through_autograd = torch.autograd.grad(out, leaves, tdo)
+    for got in (tiled, through_autograd):
+        assert [tuple(g.shape) for g in got] == [q.shape, k.shape, v.shape]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(w), atol=2e-4, rtol=2e-4)
+
+
+MOE_ARCHS = ["moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+
+
+@functools.cache
+def _jax_params(arch, dtype):
+    """The reference's weights of a reduced config, drawn once per module
+    (JAX arrays are immutable)."""
+    return jbuild(jconfigs.get_reduced(arch).with_(dtype=dtype)).init(jax.random.PRNGKey(0))
+
+
+def _check_moe_loss(arch, dtype, jopts=None, topts=None, S=32, monkeypatch=None):
+    """Loss, metrics and every gradient of a reduced MoE model against the
+    reference's; bf16 runs the port under the reference's picks."""
+    cfg = configs.get_reduced(arch).with_(dtype=dtype)
+    jm = jbuild(jconfigs.get_reduced(arch).with_(dtype=dtype), jopts or JModelOpts())
+    jp = _jax_params(arch, dtype)
+    tm = build(cfg, device="cpu", opts=topts or ModelOpts())
+    tp = tm.load(params_from_jax_numpy(jax.tree.map(np.asarray, jp), cfg))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    with jax_picks(monkeypatch) if dtype == "bfloat16" else contextlib.nullcontext([]) as picks:
+        # jitted (a fresh function, traced here with the recording top_k)
+        (jl, jmet), jg = jax.jit(jax.value_and_grad(lambda *a: jm.loss(*a), has_aux=True))(
+            jp, {"tokens": jnp.asarray(toks)})
+    T, chunk = 2 * S, (topts or ModelOpts()).moe_token_chunk
+    n_calls = cfg.n_moe_layers * (T // chunk if chunk < T and T % chunk == 0 else 1)
+    assert len(picks) == (n_calls if dtype == "bfloat16" else 0)
+    with route_log(picks) as log:
+        tl, metrics = tm.loss(tp, {"tokens": torch.from_numpy(toks).long()})
+    assert len(log.seen) == n_calls and not log.replay
+    tl.backward()
+    assert _rel(tl, jl) < TOL_LOSS[dtype]
+    assert sorted(metrics) == sorted(jmet)
+    for key, want in jmet.items():
+        assert _rel(metrics[key], want) < TOL_LOSS[dtype], key
+    want = params_from_jax_numpy(jax.tree.map(np.asarray, jg), cfg)
+    got = dict(tp.named_parameters())
+    assert sorted(want) == sorted(got)
+    for name, g in want.items():
+        if got[name].grad is None:      # a leaf the loss leaves out (mtp=False)
+            assert name.startswith("mtp.") and not np.any(_np(g)), name
+            continue
+        assert got[name].grad.dtype == got[name].dtype == want[name].dtype, name
+        assert _rel(got[name].grad, g) < TOL_GRAD[dtype], name
+    return metrics
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_and_grads_match_jax(arch, dtype, monkeypatch):
+    metrics = _check_moe_loss(arch, dtype, monkeypatch=monkeypatch)
+    assert ("mtp" in metrics) == (arch == "deepseek-v3-671b")
+    assert float(metrics["aux"].detach()) > 0
+
+
+MOE_OPTS = {"mtp_off": dict(mtp=False), "aux_weight_0": dict(aux_loss_weight=0.0),
+            "remat": dict(remat="full"), "loss_chunk": dict(loss_chunk=8),
+            "token_chunk": dict(moe_token_chunk=16)}
+
+
+@pytest.mark.parametrize("opt", sorted(MOE_OPTS))
+def test_moe_loss_options_match_jax(opt, monkeypatch):
+    """Each knob of the MoE / MLA loss on reduced deepseek-v3 (MLA, MoE and
+    the MTP block), f32: the MTP term off, the aux term weighted 0, every
+    block recomputed in the backward (a MoE block under its forward's
+    picks), the CE in sequence chunks, and a dispatch chunk of 16 of the 64
+    tokens (the aux loss the mean of four chunks')."""
+    kw = MOE_OPTS[opt]
+    metrics = _check_moe_loss("deepseek-v3-671b", "float32", JModelOpts(**kw), ModelOpts(**kw),
+                              monkeypatch=monkeypatch)
+    assert ("mtp" in metrics) == (opt != "mtp_off")
+
+
+def test_remat_replays_the_forward_picks():
+    """Under remat="full" each MoE block's recompute takes the picks its
+    forward made, and ROUTE_LOG sees only the forward's calls: the
+    gradients equal those without remat bit for bit on the CPU."""
+    cfg = configs.get_reduced("moonshot-v1-16b-a3b").with_(dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)))
+    grads = []
+    for remat in ("none", "full"):
+        m = build(cfg, device="cpu", opts=ModelOpts(remat=remat))
+        params = m.init()
+        with route_log() as log:
+            m.loss(params, {"tokens": toks})[0].backward()
+        assert len(log.seen) == cfg.n_moe_layers
+        grads.append({n: p.grad for n, p in params.named_parameters()})
+    for n, g in grads[0].items():
+        assert torch.equal(grads[1][n], g), n
+
+
+def test_dispatch_backward_is_the_sum_of_slot_gradients():
+    """moe.Dispatch: each kept pick's row holds its token, the rest are
+    zero; a token's gradient is the sum of its K rows' (a dropped pick adds
+    nothing), as autograd's backward of the indexing it replaces."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 1, (5, 3)).astype(np.float32)).requires_grad_()
+    slot = torch.tensor([[0, 7], [1, 2], [7, 3], [4, 5], [6, 7]])
+    buf = moe.Dispatch.apply(x, slot, 7)
+    ref = torch.zeros(8, 3).index_put((slot.reshape(-1),), x.repeat_interleave(2, 0))[:7]
+    assert torch.equal(buf, ref)
+    g = torch.from_numpy(rng.normal(0, 1, (7, 3)).astype(np.float32))
+    (got,) = torch.autograd.grad(buf, x, g)
+    want = torch.zeros(5, 3)
+    for t in range(5):
+        for s_ in slot[t].tolist():
+            if s_ < 7:
+                want[t] += g[s_]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("plan_kw", [{}, {"zero_stage": 1}, {"zero_stage": 3},
+                                     {"zero_stage": 1, "offload": True}],
+                         ids=["dp", "zero1", "zero3", "offload"])
+def test_moe_plans_across_a_mesh_raise_naming_a14b(plan_kw):
+    """compile_train_step refuses the MoE family: its layout across a mesh
+    is ROADMAP A14b (make_train_step trains it, above and on the card)."""
+    from repro_torch.parallel.plan import ExecutionPlan
+    from repro_torch.train.step import check_plan
+
+    with pytest.raises(NotImplementedError, match="A14b"):
+        check_plan(configs.get_reduced("deepseek-v3-671b"), ExecutionPlan(**plan_kw))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_input_specs_and_dummy_batch(arch):
+    from repro_torch.configs import ShapeConfig
+
+    m = build(configs.get_reduced(arch), device="cpu")
+    assert m.input_specs(ShapeConfig("t", 16, 2, "train"))["tokens"].shape == (2, 16)
+    assert m.input_specs(ShapeConfig("d", 16, 2, "decode"))["tokens"].shape == (2,)
+    b = m.dummy_batch(ShapeConfig("t", 16, 2, "train"))
+    loss, metrics = m.loss(m.init(), b)
+    assert b["tokens"].shape == (2, 16) and int(b["tokens"].max()) < m.cfg.vocab_size
+    assert bool(torch.isfinite(loss)) and "aux" in metrics
+
+
 def test_input_specs_and_dummy_batch():
     from repro_torch.configs import ShapeConfig
 
@@ -362,3 +555,127 @@ def test_train_on_card_matches_cpu(plan_kw, dtype, cuda_device):
         pc, sc, mc = step_c(pc, sc, {"tokens": toks})
         pg, sg, mg = step_g(pg, sg, {"tokens": toks.to(cuda_device)})
         assert _rel(mg["loss"], mc["loss"]) <= TOL_LOSS[dtype]
+
+
+# The bwd_kernels cases of chip_smoke.py at d 192 / dv 128: (label, B, Sq, Sk,
+# Hq, Hkv); deepseek-v3-671b's train shape first.  v is a view of the
+# (B, S, H, 256) buffer MLA decompresses it into, as the model hands it over.
+GPU_MLA_BWD_CASES = [
+    ("deepseek-v3 train", 4, 512, 512, 128, 128),
+    ("ragged S=300", 2, 300, 300, 128, 128),
+    ("Sq < Sk", 2, 128, 640, 128, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GPU_MLA_BWD_CASES, ids=[c[0] for c in GPU_MLA_BWD_CASES])
+def test_backward_kernel_matches_plain_at_192_128(case, dtype, cuda_device):
+    _, B, Sq, Sk, Hq, Hkv = case
+    d, dv = MLA_DIMS
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(TDT[dtype])
+
+    q, k, do = randn(B, Sq, Hq, d), randn(B, Sk, Hkv, d), randn(B, Sq, Hq, dv)
+    v = randn(B, Sk, Hkv, 2 * dv)[..., dv:]
+    scale = 1.0 / np.sqrt(d)
+    o, lse = flash_attention_plain(q, k, v, scale=scale)
+    launches = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == launches + 1
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale=scale)
+    assert [g.shape for g in got] == [q.shape, k.shape, (B, Sk, Hkv, dv)]
+    for g, w in zip(got, want):
+        assert g.dtype == TDT[dtype] and bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= TOL_BWD[dtype]
+
+
+# The cut MoE models of chip_smoke.py's REFERENCE: full per-head dims (the
+# kernels take them), 1 dense + 1 MoE layer of 8 experts top-2.
+MOE_CUT = dict(n_layers=2, n_dense_layers=1, d_model=256, n_heads=2, n_kv_heads=2, d_ff=512,
+               n_experts=8, top_k=2, n_shared_experts=1, moe_d_ff=128, vocab_size=512)
+MLA_CUT = dict(q_lora_rank=64, kv_lora_rank=32)
+
+
+def _moe_cut(arch, dtype):
+    return configs.get(arch).with_(dtype=dtype, **MOE_CUT,
+                                   **(MLA_CUT if arch == "deepseek-v3-671b" else {}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("plan_kw", [{}, {"ga_steps": 2}, {"gc": True}],
+                         ids=["plain", "ga2", "gc"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_on_card_matches_cpu(arch, plan_kw, dtype, cuda_device):
+    """As test_train_on_card_matches_cpu for the cut MoE models, the card
+    under the CPU's expert picks (a near-tie flips on bf16 rounding; the
+    routers are held to each other in tests/test_torch_moe.py and by
+    chip_smoke.py): step-1 loss and gradients, then 3 AdamW steps."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.parallel.plan import ExecutionPlan
+    from repro_torch.train.step import make_train_step
+
+    cfg = _moe_cut(arch, dtype)
+    plan = ExecutionPlan(**plan_kw)
+    opts = ModelOpts(remat="full" if plan.gc else "none", loss_chunk=0)
+    optcfg = topt.OptConfig(lr=1e-3)
+    data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2))
+    cpu = build(cfg, device="cpu", opts=opts)
+    gpu = build(cfg, device=cuda_device, opts=opts)
+    pc = cpu.init()
+    pg = gpu.load({k: v.to(cuda_device) for k, v in pc.state_dict().items()})
+
+    def both(run_cpu, run_gpu):
+        with route_log() as log:
+            out_c = run_cpu()
+        with route_log([e.numpy() for _, _, e in log.seen]) as replay:
+            out_g = run_gpu()
+        assert not replay.replay and len(replay.seen) == len(log.seen)
+        return out_c, out_g
+
+    grads = []
+    toks = torch.from_numpy(data.batch(0)).long()
+    losses = both(lambda: cpu.loss(pc, {"tokens": toks})[0],
+                  lambda: gpu.loss(pg, {"tokens": toks.to(cuda_device)})[0])
+    assert _rel(losses[1], losses[0]) <= TOL_LOSS[dtype]
+    for loss, p in zip(losses, (pc, pg)):
+        loss.backward()
+        grads.append({n: t.grad.detach().cpu() for n, t in p.named_parameters()})
+        p.zero_grad(set_to_none=True)
+    for n, g in grads[0].items():
+        assert _rel(grads[1][n], g) <= TOL_GRAD[dtype], n
+    sc, sg = topt.opt_init(pc, optcfg), topt.opt_init(pg, optcfg)
+    step_c = make_train_step(cpu, plan, optcfg)
+    step_g = make_train_step(gpu, plan, optcfg)
+    for i in range(3):
+        toks = torch.from_numpy(data.batch(i)).long()
+        (pc, sc, mc), (pg, sg, mg) = both(lambda: step_c(pc, sc, {"tokens": toks}),
+                                          lambda: step_g(pg, sg, {"tokens": toks.to(cuda_device)}))
+        assert _rel(mg["loss"], mc["loss"]) <= TOL_LOSS[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_step_is_bit_repeatable(arch, cuda_device):
+    """The same bf16 step twice on the card from the same weights: loss and
+    every gradient the same bits (the dispatch's backward sums in a fixed
+    order; the flash backward sums without atomics)."""
+    cfg = _moe_cut(arch, "bfloat16")
+    m = build(cfg, device=cuda_device, opts=ModelOpts(loss_chunk=0))
+    params = m.init()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 100)))
+    runs = []
+    for _ in range(2):
+        loss, metrics = m.loss(params, {"tokens": toks.to(cuda_device)})
+        loss.backward()
+        runs.append((loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                     {n: p.grad.clone() for n, p in params.named_parameters()}))
+        params.zero_grad(set_to_none=True)
+    (l0, m0, g0), (l1, m1, g1) = runs
+    assert torch.equal(l0, l1) and all(torch.equal(m0[k], m1[k]) for k in m0)
+    for n, g in g0.items():
+        assert torch.equal(g, g1[n]), n

@@ -11,6 +11,11 @@
   port and a port checkpoint restored by ``repro.train.checkpoint.
   CheckpointManager.restore`` hold exactly the same leaves, and each resumed
   run ends within rel 1e-3 of the uninterrupted one.
+* The MoE family (moonshot-v1-16b-a3b, deepseek-v3-671b): the launcher's
+  3-step f32 trajectory against the reference's at 1e-4 (deepseek also
+  under GA 2 and GC); params and optimizer state (the dense and MoE layer
+  groups, the MTP block, the f32 router beside bf16 experts) through each
+  framework's checkpoint into the other's, leaf for leaf.
 
 The f32 runs swap each package's ``configs.get_reduced`` for one that
 returns the reduced config in float32 (neither launcher takes a dtype).
@@ -51,6 +56,82 @@ def test_trajectory_matches_jax_launcher(tmp_path, float32_configs):
     got = _cpu_train(steps=3, ckpt_dir=str(tmp_path / "jax"), **kw)["losses"]
     assert len(got) == len(want) == 3
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+MOE_TRAJECTORIES = [("moonshot-v1-16b-a3b", {}), ("deepseek-v3-671b", {}),
+                    ("deepseek-v3-671b", {"ga_steps": 2}), ("deepseek-v3-671b", {"gc": True})]
+
+
+@pytest.mark.parametrize("arch,plan_kw", MOE_TRAJECTORIES,
+                         ids=["moonshot", "deepseek", "deepseek-ga2", "deepseek-gc"])
+def test_moe_trajectory_matches_jax_launcher(arch, plan_kw, tmp_path, float32_configs):
+    """As test_trajectory_matches_jax_launcher for the MoE family: the aux
+    and MTP losses in the step, GA 2 splitting each batch's dispatch, GC
+    recomputing each MoE block under its forward's picks."""
+    kw = dict(arch=arch, reduced=True, batch=4, seq=16, plan_kw=plan_kw)
+    jtrain(steps=0, ckpt_dir=str(tmp_path / "jax"), log_every=1000, **kw)
+    want = jtrain(steps=3, log_every=1000, **kw)["losses"]
+    got = _cpu_train(steps=3, ckpt_dir=str(tmp_path / "jax"), **kw)["losses"]
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_checkpoint_crosses_frameworks(arch, dtype, tmp_path):
+    """A port checkpoint (moments drawn from a seed, count 3) restored by
+    the reference's CheckpointManager, then saved by it and restored by the
+    port: every param and moment leaf the same bits both ways."""
+    import torch
+
+    from repro.models import build as jbuild
+    from repro_torch.models import build
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import OptConfig, opt_init
+
+    cfg = configs.get_reduced(arch).with_(dtype=dtype)
+    params = build(cfg, device="cpu").init()
+    opt_state = opt_init(params, OptConfig())
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for k in ("m", "v"):
+            for t in opt_state[k].values():
+                t.copy_(torch.from_numpy(rng.normal(0, 1, tuple(t.shape))))
+    opt_state["count"] = 3
+    assert params.moe_layers[0].moe.router.dtype == torch.float32
+    CheckpointManager(tmp_path / "port", async_save=False).save(3, params, opt_state)
+
+    jm = jbuild(jconfigs.get_reduced(arch).with_(dtype=dtype))
+    jp = jm.init(jax.random.PRNGKey(1))
+    jp, jst, meta = JCheckpointManager(tmp_path / "port").restore(jp, jopt_init(jp, JOptConfig()))
+    assert meta["step"] == 3 and int(jst["count"]) == 3
+    want = _port_arrays(params, opt_state)
+    got = {**_flat_jax_arrays(jp, "params"), **_flat_jax_arrays(jst, "opt")}
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        assert got[key].dtype == arr.dtype and np.array_equal(got[key], arr), key
+
+    JCheckpointManager(tmp_path / "jax", async_save=False).save(3, jp, jst)
+    fresh = build(cfg, device="cpu", seed=1).init()
+    fresh, fresh_opt, _ = CheckpointManager(tmp_path / "jax").restore(
+        fresh, opt_init(fresh, OptConfig()))
+    back = _port_arrays(fresh, fresh_opt)
+    for key, arr in want.items():
+        assert back[key].dtype == arr.dtype and np.array_equal(back[key], arr), key
+
+
+def _flat_jax_arrays(tree, prefix: str) -> dict:
+    """A JAX tree's leaves under the flat ``prefix/...`` keys of a
+    checkpoint (bf16 as its uint16 bits under ``<key>::bf16``)."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join([prefix, *(p.key for p in path)])
+        a = np.asarray(leaf)
+        if a.dtype == jnp.bfloat16:
+            out[key + "::bf16"] = a.view(np.uint16)
+        else:
+            out[key] = a
+    return out
 
 
 def test_loss_decreases():
