@@ -35,7 +35,12 @@ exits nonzero without printing a result:
               prefill (B 4, S 512, 128:128 heads, v a view of the model's
               decompressed (B,S,H,256) buffer) in bf16 and f32, ragged
               S = 300 and Sq < Sk, its bound taking d and dv apart (SDPA
-              "none" where it refuses dv != d);
+              "none" where it refuses dv != d); the d 96 instantiation at
+              phi-3-vision-4.2b's prefill (B 4, S 1088 = 576 patches + 512
+              tokens, 32:32 heads), ragged S = 300 and f32; non-causal at
+              seamless-m4t-large-v2's encoder (B 4, S 1024, 16:16 heads,
+              d 64) and cross-attention (Sq 512 < Sk 1024), and Sq 1500 >
+              Sk 1024;
             ssd_scan_fwd: y held at max|Δ| / max|plain| <= f32 2e-5, bf16
               3e-2, h_last at 2e-5 relative (tests/test_kernels.py:73);
             wkv6_fwd: y and S_last at 2e-5 relative (tests/test_kernels.py:88),
@@ -43,26 +48,34 @@ exits nonzero without printing a result:
   reference small llama (head dim 128), zamba2 (SSD scan, attention head dim
             112), rwkv6, moonshot (1 dense + 1 MoE layer, 8 experts top-2)
             and deepseek-v3 (the same with MLA at its full per-head dims, so
-            the d 192 / dv 128 kernel runs) models served on the card and on
-            the CPU from the same weights: logits of prefill and 3 decode
-            steps agree to 1e-4 in f32 and 3e-2 in bf16.  The MoE models'
+            the d 192 / dv 128 kernel runs), seamless-m4t (2 encoder + 2
+            decoder layers, 4 heads of 64, 128 frames: the non-causal
+            kernel) and phi-3-vision (2 layers, 2 heads of 96: the d 96
+            kernel, 16 patches) models served on the card and on the CPU
+            from the same weights and modality stub (from SEED): logits of
+            prefill and 3 decode steps agree to 1e-4 in f32 and 3e-2 in
+            bf16.  The MoE models'
             CPU calls replay the card's expert picks (a near-tie flips on
             bf16 rounding); the CPU's router on each card call's own input
             must pick the same experts (a fault names the token's top-k
             margin), and in f32 so must the CPU run's router on its own
             inputs (in bf16 such flips are counted, with their margins)
   serve     llama2-7b, zamba2-7b, rwkv6-1.6b, moonshot-v1-16b-a3b (48 layers,
-            28.4e9 parameters) and deepseek-v3-671b (every width, depth cut
-            to 4 layers: 3 dense, 1 MoE of 256 experts, the MTP block) at
-            full width (bf16 weights
+            28.4e9 parameters), deepseek-v3-671b (every width, depth cut
+            to 4 layers: 3 dense, 1 MoE of 256 experts, the MTP block),
+            seamless-m4t-large-v2 (24 + 24 layers, 1,024 frames) and
+            phi-3-vision-4.2b (32 layers, 576 patches before the prompt's
+            512 tokens) at full width (bf16 weights
             drawn on the card from a seed), one after the other, batch 4,
             prompt 512, 32 new tokens through ServeEngine.generate; kernel
             launches counted over that one run (llama2-7b: 32 flash per
             prefill; zamba2-7b: 81 SSD and 13 flash per prefill; rwkv6-1.6b:
             24 WKV6 per prefill and per decode step, 792 in all, 768 of
             them by the S = 1 decode kernel; moonshot and deepseek: one
-            flash per layer a prefill, at d 192 / dv 128 for deepseek; 0
-            plain-version calls); repeatable greedy output; prefill ms,
+            flash per layer a prefill, at d 192 / dv 128 for deepseek;
+            seamless: 72 a prefill, 48 of them non-causal (each encoder
+            layer, each decoder layer's cross-attention); phi-3-vision: 32
+            at d 96; 0 plain-version calls); repeatable greedy output; prefill ms,
             decode ms/token, tok/s, peak memory; decode-vs-prefill at full
             width (rel < 0.08, as tests/test_models_smoke.py; MoE at its
             capacity factor 8, the cache path under the parallel path's
@@ -105,7 +118,7 @@ exits nonzero without printing a result:
             the backward's products); no library call computes either.  The
             bf16 WKV6 backward, like the SSD one, must agree bit for bit
             across two runs at the train shape
-  train_reference  small llama, zamba2 and rwkv6 (REFERENCE) trained 3 AdamW
+  train_reference  small llama, zamba2 and rwkv6 (TRAIN_REFERENCE) trained 3 AdamW
             steps on the card and on the CPU from the same weights and
             batches (batch 2, seq 100), as is, with ga_steps=2, with gc,
             and through compile_train_step on a one-rank NCCL group under
@@ -214,7 +227,9 @@ exits nonzero without printing a result:
 
 Then the kernel summary line (the forward's and the backward's d 192 /
 dv 128 instantiations on lines of their own, with the deepseek-v3-671b
-serve's and train's launches), the
+serve's and train's launches; the forward's d 96 one with phi-3-vision's,
+and its non-causal launches, seamless's, at the encoder and
+cross-attention shapes), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 f32 matmuls and convolutions run without TF32 (both backends' allow_tf32 set
@@ -361,7 +376,7 @@ def phase_build():
     import ctypes
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, FWD_HEAD_DIMS
     from repro_torch.kernels.ssd_scan import SHAPES
     from repro_torch.kernels.wkv6 import HEAD_DIMS as WKV_DIMS
 
@@ -390,7 +405,7 @@ def phase_build():
                                                               ("float32", 0))},
                      "flash_attention_bwd": {f"{dt} {kern}": {d if d == dv else f"{d}/{dv}":
                                                               fb(d, dv, code, k)
-                                                              for d, dv in FWD_HEAD_DIMS}
+                                                              for d, dv in BWD_HEAD_DIMS}
                                              for dt, code in (("bfloat16", 1), ("float32", 0))
                                              for kern, k in (("dq", 0), ("dkdv", 1))},
                      "ssd_scan_fwd": {dt: {f"P={p},N={n}": ssd(p, n, code) for p, n in SHAPES}
@@ -418,6 +433,11 @@ def phase_build():
 # (B, S, H, 128 + 128) buffer the model decompresses it into, as the model
 # hands it over; the first such case is deepseek-v3-671b's prefill.
 MLA_D = (192, 128)
+# The serving shapes of phi-3-vision-4.2b (d 96) and seamless-m4t-large-v2
+# (non-causal, d 64), which the kernels line reports beside the first case.
+D96_CASE = "phi-3-vision-4.2b prefill d=96 (576 patches + 512 text)"
+ENCODER_CASE = "seamless-m4t-large-v2 encoder, bidirectional"
+CROSS_CASE = "seamless-m4t-large-v2 cross-attention, Sq 512 < Sk 1024"
 CASES = [
     ("llama2-7b prefill", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16),
     ("packed (B,S,3,H,d) views", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16, True),
@@ -443,6 +463,13 @@ CASES = [
     ("MLA ragged S=300", 2, 300, 300, 128, 128, MLA_D, True, 0, torch.bfloat16),
     ("MLA Sq < Sk (chunk 128 after 512)", 4, 128, 640, 128, 128, MLA_D, True, 0,
      torch.bfloat16),
+    (D96_CASE, 4, 1088, 1088, 32, 32, 96, True, 0, torch.bfloat16),
+    ("d=96 ragged S=300", 2, 300, 300, 32, 32, 96, True, 0, torch.bfloat16),
+    ("d=96 f32", 2, 512, 512, 32, 32, 96, True, 0, torch.float32),
+    (ENCODER_CASE, 4, 1024, 1024, 16, 16, 64, False, 0, torch.bfloat16),
+    ("seamless-m4t-large-v2 decoder self", 4, 512, 512, 16, 16, 64, True, 0, torch.bfloat16),
+    (CROSS_CASE, 4, 512, 1024, 16, 16, 64, False, 0, torch.bfloat16),
+    ("bidirectional Sq 1500 > Sk 1024", 4, 1500, 1024, 16, 16, 64, False, 0, torch.bfloat16),
 ]
 
 
@@ -515,7 +542,12 @@ def phase_kernels():
     emit("kernels", kernel="flash_attention_fwd", cases=rows)
     if failed:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {failed}")
-    return rows[0], next(r for r in rows if r["dv"] != r["d"])
+    by_label = {r["case"]: r for r in rows}
+    return {"flash_attention_fwd": rows[0],
+            "flash_attention_fwd_mla": next(r for r in rows if r["dv"] != r["d"]),
+            "flash_attention_fwd_d96": by_label[D96_CASE],
+            "flash_attention_fwd_encoder": by_label[ENCODER_CASE],
+            "flash_attention_fwd_cross": by_label[CROSS_CASE]}
 
 
 # (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dtype); the first is the
@@ -1163,7 +1195,37 @@ REFERENCE = {
                               n_kv_heads=2, d_ff=512, n_experts=8, top_k=2,
                               n_shared_experts=1, moe_d_ff=128, q_lora_rank=64,
                               kv_lora_rank=32)),
+    "seamless-m4t-large-v2": ("2 encoder + 2 decoder layers, d_model 256, 4 heads of 64, "
+                              "128 frames (the encoder and the cross-attention run the "
+                              "non-causal kernel, the cross-attention at Sq 100 < Sk 128)",
+                              dict(n_layers=2, enc_layers=2, d_model=256, n_heads=4,
+                                   n_kv_heads=4, d_ff=512, n_frames=128)),
+    "phi-3-vision-4.2b": ("2 layers, d_model 256, 2 heads of 96 (the d 96 kernel), 16 "
+                          "patches before the 100 tokens",
+                          dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=96,
+                               d_ff=512, n_patches=16)),
 }
+
+
+# Served only: their losses and the flash backward at d 96 are ROADMAP A18b,
+# so train_reference leaves them out.
+SERVE_ONLY = ("seamless-m4t-large-v2", "phi-3-vision-4.2b")
+TRAIN_REFERENCE = {arch: v for arch, v in REFERENCE.items() if arch not in SERVE_ONLY}
+
+
+def prompt_on(cfg, B: int, n_text: int, device) -> dict[str, torch.Tensor]:
+    """A prompt of ``n_text`` tokens from SEED with the config's modality stub
+    (frames, or patches before the text), as the launcher draws it, on
+    ``device``."""
+    from repro_torch.launch.serve import prompt_batch
+
+    n = n_text + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    return {k: torch.from_numpy(a).to(device) for k, a in prompt_batch(cfg, B, n, SEED).items()}
+
+
+def positions(batch: dict) -> int:
+    """Cache positions a prompt fills: its tokens, and its patches before them."""
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1] if "patches" in batch else 0)
 
 
 def topk_margin(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -1233,7 +1295,8 @@ def replayed(first, second):
 
 def reference_run(cfg, device: str = "cuda") -> tuple[list[float], dict, list[str]]:
     """One small model served on ``device`` and on the CPU from the same
-    weights, prefill of 2 x 100 then 3 decode steps: (rel of each step's
+    weights and the same modality stub, prefill of 2 x 100 tokens (after 16
+    patches for the vision model) then 3 decode steps: (rel of each step's
     logits, route summary, route faults).  For a MoE model each CPU call
     replays the experts the card picked for it (moe.ROUTE_LOG): a pick is a
     discontinuous function of its input, and the card's and the CPU's bf16
@@ -1245,7 +1308,8 @@ def reference_run(cfg, device: str = "cuda") -> tuple[list[float], dict, list[st
     cpu, gpu = build(cfg, device="cpu", seed=SEED), build(cfg, device=device)
     pc = cpu.init()
     pg = gpu.load({k: v.to(device) for k, v in pc.state_dict().items()})
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 100)))
+    batch = prompt_on(cfg, 2, 100, "cpu")
+    n = positions(batch) + 4
     card_log, cpu_log = moe.RouteLog(), moe.RouteLog()
 
     def both(card_step, cpu_step):
@@ -1255,8 +1319,9 @@ def reference_run(cfg, device: str = "cuda") -> tuple[list[float], dict, list[st
         cpu_log.seen += cpu_step_log.seen
         return card, cpu_out
 
-    (cg, lg), (cc, lc) = both(lambda: gpu.prefill(pg, gpu.init_cache(2, 104), toks.to(device)),
-                              lambda: cpu.prefill(pc, cpu.init_cache(2, 104), toks))
+    (cg, lg), (cc, lc) = both(lambda: gpu.prefill(pg, gpu.init_cache(2, n),
+                                                  {k: t.to(device) for k, t in batch.items()}),
+                              lambda: cpu.prefill(pc, cpu.init_cache(2, n), batch))
     rel = [_rel(lg.cpu(), lc)]
     for _ in range(3):
         nxt = lc.argmax(-1)
@@ -1278,7 +1343,7 @@ def phase_reference():
             name = str(dt).removeprefix("torch.")
             cfg = configs.get(arch).with_(vocab_size=512, dtype=name, **cut)
             rel, routes, faults = reference_run(cfg)
-            entry = {"cfg": f"{arch} widths cut to {what}, {name}, prompt 100",
+            entry = {"cfg": f"{arch} cut to {what}, {name}, prompt 100 tokens",
                      "tol": TOL_REF[dt], "prefill_then_decode_rel": rel}
             if cfg.n_experts:
                 entry.update(routes=routes, route_faults=faults[:4])
@@ -1311,7 +1376,7 @@ MOE_SKIPPED_PLANS = ("offload", "zero3")
 
 
 def phase_train_reference():
-    """The small models of REFERENCE trained 3 AdamW steps on the card and
+    """The small models of TRAIN_REFERENCE trained 3 AdamW steps on the card and
     on the CPU from the same weights and batches, under five plans (the MoE
     models under three), in f32 and in bf16; a MoE model's card run replays
     the CPU run's expert picks, and its routers are held to each other on
@@ -1339,7 +1404,7 @@ def phase_train_reference():
     batch0 = torch.from_numpy(data.batch(0)).long()
     optcfg = OptConfig(lr=1e-3)
     out, failed = {}, []
-    for arch, (what, cut) in REFERENCE.items():
+    for arch, (what, cut) in TRAIN_REFERENCE.items():
         is_moe = "n_experts" in cut
         for dtype, (tol_loss, tol_grad) in TRAIN_TOL.items():
             cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
@@ -1414,7 +1479,8 @@ def phase_train_reference():
     torch._C._cuda_clearCublasWorkspaces()
     free_device_memory()
     emit("train_reference", cfg={arch: f"{arch} widths cut to {what}" for arch, (what, _)
-                                 in REFERENCE.items()},
+                                 in TRAIN_REFERENCE.items()},
+         serve_only={arch: "training is ROADMAP A18b" for arch in SERVE_ONLY},
          batch="batch 2, seq 100, AdamW lr 1e-3, 3 steps", tol_loss_grad=TRAIN_TOL,
          plans={label: plan.strategy for label, plan in plans.items()},
          moe_plans_skipped={label: "the MoE family's plans across a mesh are ROADMAP A14b"
@@ -1444,12 +1510,15 @@ def reset_counts(counters) -> None:
         fwd.launches = 0
         plain.calls = 0
     counters["wkv6_fwd"][0].decode_launches = 0
+    counters["flash_attention_fwd"][0].noncausal_launches = 0
 
 
 def read_counts(counters) -> tuple[dict[str, int], dict[str, int]]:
     """(kernel launches, plain-version calls) since reset_counts."""
     launches = {name: fwd.launches for name, (fwd, _) in counters.items()}
     launches["wkv6_decode"] = counters["wkv6_fwd"][0].decode_launches
+    launches["flash_attention_fwd_noncausal"] = counters["flash_attention_fwd"][0] \
+        .noncausal_launches
     return launches, {name: plain.calls for name, (_, plain) in counters.items()}
 
 
@@ -1464,6 +1533,13 @@ SERVED = {
     "moonshot-v1-16b-a3b": lambda cfg, G: {"flash_attention_fwd": cfg.n_layers},
     # every launch at d 192 / dv 128 (MLA prefill)
     "deepseek-v3-671b": lambda cfg, G: {"flash_attention_fwd": cfg.n_layers},
+    # per prefill: each encoder layer (bidirectional), each decoder layer's
+    # self (causal) and cross-attention (non-causal, Sq 512 < Sk 1024)
+    "seamless-m4t-large-v2": lambda cfg, G: {
+        "flash_attention_fwd": cfg.enc_layers + 2 * cfg.n_layers,
+        "flash_attention_fwd_noncausal": cfg.enc_layers + cfg.n_layers},
+    # every launch at d 96, over 576 patches + 512 tokens
+    "phi-3-vision-4.2b": lambda cfg, G: {"flash_attention_fwd": cfg.n_layers},
 }
 # Served models cut in depth to fit one card: (what was cut, the cut).
 SERVE_CUT = {
@@ -1481,25 +1557,29 @@ def split_picks(seen, B: int, k: int) -> list[torch.Tensor]:
     return [e[:, :k].reshape(B * k, -1) for e in picks] + [e[:, k] for e in picks]
 
 
-def decode_vs_prefill(model, params, tokens) -> float:
-    """rel of prefill(t[:k]) + decode(t[k]) against prefill(t[:k+1]), k = P - 1.
+def decode_vs_prefill(model, params, batch: dict) -> float:
+    """rel of prefill(t[:k]) + decode(t[k]) against prefill(t[:k+1]), k = P - 1,
+    on the same modality stub.
     A MoE model runs at capacity factor 8, as tests/test_models_smoke.py
     (token dropping depends on the sequence length by design), and its cache
     path under the experts its parallel path picked: the two paths' bf16
     rounding differs, and a near-tie in a router flips on it."""
     from repro_torch.models import build, moe
 
+    tokens = batch["tokens"]
     B, P = tokens.shape
     k = P - 1
+    n = positions(batch) + 1
     if model.cfg.n_experts:
         model = build(model.cfg.with_(capacity_factor=8.0), device=model.device,
                       opts=model.opts)
     try:
         moe.ROUTE_LOG = par_log = moe.RouteLog()
-        _, par = model.prefill(params, model.init_cache(B, P + 1), tokens)
+        _, par = model.prefill(params, model.init_cache(B, n), batch)
         moe.ROUTE_LOG = log = moe.RouteLog(split_picks(par_log.seen, B, k))
         del par_log
-        cache, _ = model.prefill(params, model.init_cache(B, P + 1), tokens[:, :k])
+        cache, _ = model.prefill(params, model.init_cache(B, n),
+                                 dict(batch, tokens=tokens[:, :k]))
         _, dec = model.decode_step(params, cache, tokens[:, k])
         if log.replay:
             raise AssertionError(f"{model.cfg.name}: {len(log.replay)} replayed picks unused")
@@ -1524,9 +1604,9 @@ def phase_serve(arch: str) -> dict[str, int]:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    engine = ServeEngine(model, params, max_len=P + G + 1)
-    tokens = torch.from_numpy(
-        np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, P))).cuda()
+    batch = prompt_on(cfg, B, P, "cuda")
+    max_len = positions(batch) + G + 1
+    engine = ServeEngine(model, params, max_len=max_len)
 
     # The counted run: one generate call, nothing else.
     counters = kernel_counters()
@@ -1534,7 +1614,7 @@ def phase_serve(arch: str) -> dict[str, int]:
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     t0 = time.perf_counter()
-    out = engine.generate(tokens, steps=G)
+    out = engine.generate(batch, steps=G)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches, plain_calls = read_counts(counters)
@@ -1547,7 +1627,7 @@ def phase_serve(arch: str) -> dict[str, int]:
         raise AssertionError(f"{arch}: bad generate output {tuple(out.shape)}")
 
     t0 = time.perf_counter()
-    out2 = engine.generate(tokens, steps=G)
+    out2 = engine.generate(batch, steps=G)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     if not torch.equal(out, out2):
@@ -1555,10 +1635,10 @@ def phase_serve(arch: str) -> dict[str, int]:
 
     prefill_s = []
     for _ in range(3):
-        cache = model.init_cache(B, P + G + 1)
+        cache = model.init_cache(B, max_len)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache, logits = model.prefill(params, cache, tokens)
+        cache, logits = model.prefill(params, cache, batch)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
     tok = logits.argmax(-1)
@@ -1572,9 +1652,11 @@ def phase_serve(arch: str) -> dict[str, int]:
     del cache, logits
 
     # Decode must continue prefill: prefill(t[:k]) + decode(t[k]) vs prefill(t[:k+1]).
-    rel = decode_vs_prefill(model, params, tokens)
-    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, cut=cut,
-         n_params=n_params, dtype="bfloat16", batch=B, prompt=P, gen=G,
+    rel = decode_vs_prefill(model, params, batch)
+    stub = {k: list(t.shape) for k, t in batch.items() if k != "tokens"}
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         d_model=cfg.d_model, cut=cut, n_params=n_params, dtype="bfloat16", batch=B,
+         prompt=P, prompt_positions=positions(batch), stub=stub, gen=G,
          init_s=init_s, cold_generate_s=cold_s, warm_generate_s=warm_s,
          tok_per_s=B * G / warm_s, prefill_ms=min(prefill_s) * 1e3,
          prefill_ms_all=[s * 1e3 for s in prefill_s], decode_ms_per_token=decode_ms,
@@ -1583,8 +1665,8 @@ def phase_serve(arch: str) -> dict[str, int]:
          decode_vs_prefill_rel=rel, first_tokens=out[0, :8].tolist())
     if rel >= 0.08:
         raise AssertionError(f"{arch}: decode/prefill mismatch at full width: rel={rel}")
-    phase_trace(arch, model, params, tokens, P + G + 1)
-    del engine, params, model
+    phase_trace(arch, model, params, batch, max_len)
+    del engine, params, model, batch
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1609,7 +1691,7 @@ def device_kernels(prof) -> list[tuple[str, float, int]]:
     return sorted((k for k in kern if k[1] > 0), key=lambda k: -k[1])
 
 
-def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
+def phase_trace(arch, model, params, batch: dict, max_len: int, steps: int = 8):
     """torch.profiler over one prefill and `steps` decode steps (warm): device
     time by kernel (the top 8, and each of the port's kernels with its share
     of the busy time), and the device's idle share of each window's wall
@@ -1617,14 +1699,15 @@ def phase_trace(arch, model, params, tokens, max_len: int, steps: int = 8):
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
+    B = batch["tokens"].shape[0]
     for label in ("prefill", "decode"):
-        cache, logits = model.prefill(params, model.init_cache(tokens.shape[0], max_len), tokens)
+        cache, logits = model.prefill(params, model.init_cache(B, max_len), batch)
         tok = logits.argmax(-1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if label == "prefill":
-                model.prefill(params, model.init_cache(tokens.shape[0], max_len), tokens)
+                model.prefill(params, model.init_cache(B, max_len), batch)
             else:
                 for _ in range(steps):
                     cache, logits = model.decode_step(params, cache, tok)
@@ -2617,7 +2700,7 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     mains = {"ssd_scan_fwd": phase_ssd_kernels()}
-    mains["flash_attention_fwd"], mains["flash_attention_fwd_mla"] = phase_kernels()
+    mains.update(phase_kernels())
     mains["wkv6_fwd"], mains["wkv6_decode"] = phase_wkv_kernels()
     phase_reference()
     by_path = {arch: phase_serve(arch) for arch in SERVED}
@@ -2660,21 +2743,33 @@ def main() -> int:
                      "wkv_chunked; no Pallas kernel)", "max_abs_err"),
         "wkv6_decode": ("wkv6_fwd.cu", "src/repro/kernels/wkv6.py:76", "max_abs_err_y"),
     }
-    # The d 192 / dv 128 instantiations of the forward and the backward, on
-    # lines of their own: their launches are the deepseek-v3-671b serve's and
-    # train's (every one of which is MLA); flash_attention_fwd's and _bwd's
-    # counts hold them too.
+    # The d 192 / dv 128 instantiations of the forward and the backward, the
+    # forward's d 96 one and its non-causal launches, on lines of their own:
+    # their launches are the deepseek-v3-671b serve's and train's (every one
+    # of which is MLA), the phi-3-vision-4.2b serve's (every one at d 96) and
+    # the non-causal ones (seamless-m4t-large-v2's encoder and
+    # cross-attention); flash_attention_fwd's and _bwd's counts hold them too.
     mla_paths = ("deepseek-v3-671b", "deepseek-v3-671b train")
+    variants = {"_mla": " (d 192, dv 128)", "_d96": " (d 96)",
+                "_noncausal": " (non-causal)"}
     for kname in ("flash_attention_fwd", "flash_attention_bwd"):
         sources[f"{kname}_mla"] = sources[kname]
         for arch, counts in by_path.items():
             counts[f"{kname}_mla"] = counts.get(kname, 0) if arch in mla_paths else 0
+    for suffix in ("_d96", "_noncausal"):
+        sources[f"flash_attention_fwd{suffix}"] = sources["flash_attention_fwd"]
+    for arch, counts in by_path.items():
+        counts["flash_attention_fwd_d96"] = counts["flash_attention_fwd"] \
+            if arch == "phi-3-vision-4.2b" else 0
+    mains["flash_attention_fwd_noncausal"] = dict(mains["flash_attention_fwd_encoder"],
+                                                  other_case=mains["flash_attention_fwd_cross"])
     kernels = []
     for kname, (src, tpu, err_key) in sources.items():
         main_case = mains[kname]
+        base, suffix = next(((kname.removesuffix(v), v) for v in variants if kname.endswith(v)),
+                            (kname, ""))
         kernels.append({
-            "name": kname.removesuffix("_mla") + (" (d 192, dv 128)" if kname.endswith("_mla")
-                                                  else ""),
+            "name": base + variants.get(suffix, ""),
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu,
@@ -2688,6 +2783,10 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
+            **({"other_case": {k: main_case["other_case"][k]
+                               for k in ("case", "max_abs_err_o", "kernel_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")}}
+               if "other_case" in main_case else {}),
         })
     print(json.dumps({"kernels": kernels, "seconds": time.perf_counter() - t_start}))
     print(smi)

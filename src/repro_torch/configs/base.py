@@ -116,13 +116,12 @@ class ShapeConfig:
 
 # Architectures the port serves, and where the others are queued.
 ARCHS = ("gemma-2b", "starcoder2-3b", "gpt2-1.5b", "llama2-7b", "zamba2-7b",
-         "rwkv6-1.6b", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
+         "rwkv6-1.6b", "moonshot-v1-16b-a3b", "deepseek-v3-671b", "seamless-m4t-large-v2",
+         "phi-3-vision-4.2b")
 
 NOT_YET_PORTED = {
     "phi3-medium-14b": "ROADMAP A8 (more dense configs)",
     "qwen2-72b": "ROADMAP A8 (more dense configs; needs A14 to shard it)",
-    "seamless-m4t-large-v2": "ROADMAP A18 (encoder-decoder)",
-    "phi-3-vision-4.2b": "ROADMAP A18 (vision frontend)",
 }
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

@@ -18,7 +18,10 @@ singleton stack axis of the hybrid's ``shared/`` block and of the MTP
 block's ``mtp/layer/`` dropped.  A MoE leaf keeps its expert axis after the
 layer axis (``we_in`` (L,E,D,fin) gives ``moe_layers.<i>.moe.we_in``
 (E,D,fin)), and every leaf its declared dtype (the f32 router beside bf16
-experts).  A missing or unexpected key, a
+experts).  The encoder-decoder's ``enc_layers/`` and ``dec_layers/`` (with
+``xattn``) unstack by their own counts; its ``frame_proj``, ``enc_pos``
+and ``enc_ln_f``, and the vision decoder's ``patch_proj``, are plain
+leaves.  A missing or unexpected key, a
 shape or a dtype that does not match the module the config builds raises;
 nothing is skipped.  So a checkpoint a JAX job wrote serves in torch: the
 paper's reconfiguration across a restart, here across frameworks.
@@ -47,13 +50,13 @@ from repro_torch.models.api import family_of
 
 _BF16 = "::bf16"
 # Stacked layer groups: the leading axis holds one entry per layer of the group.
-STACKED = ("layers", "ssm_layers", "dense_layers", "moe_layers")
+STACKED = ("layers", "ssm_layers", "dense_layers", "moe_layers", "enc_layers", "dec_layers")
 SINGLETON = ("shared", "mtp/layer")  # leading axis of 1: one block
 
 
 def _group_size(head: str, cfg: ModelConfig) -> int:
-    return {"dense_layers": cfg.n_dense_layers,
-            "moe_layers": cfg.n_moe_layers}.get(head, cfg.n_layers)
+    return {"dense_layers": cfg.n_dense_layers, "moe_layers": cfg.n_moe_layers,
+            "enc_layers": cfg.enc_layers}.get(head, cfg.n_layers)
 
 
 def _singleton(path: str, sep: str) -> bool:

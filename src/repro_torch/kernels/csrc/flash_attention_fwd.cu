@@ -18,8 +18,12 @@
 //   * it also writes lse = m + log(l) (natural log, f32, (B,Hq,Sq)).
 // Both kernels are templated on the two head dims <DK, DV>: Q and K rows
 // are DK wide, V and O rows DV wide.  The pairs built are (d, d) for d in
-// 64, 112, 128, 256 and (192, 128); for DK == DV the code is the one-dim
-// kernel it was.
+// 64, 96, 112, 128, 256 and (192, 128); for DK == DV the code is the one-dim
+// kernel it was.  Nothing assumes a power of two: DK and DV need only be
+// multiples of 16 (k-steps of the QK^T product, pairs of 8-wide n-tiles of
+// O, 16-byte chunks of a row), so 96 (phi-3-vision: 6 k-steps, 12 chunks a
+// row, a 208-byte shared row whose 8 ldmatrix rows still hit distinct
+// banks) and 112 run the same code as 64 and 128.
 //
 // What bounds it on the card.  At the llama2-7b prefill shape (B 4, S 512,
 // 32 heads, d 128, causal, bf16) the kernel must move about 67.4 MB of
@@ -671,6 +675,7 @@ extern "C" int flash_attention_fwd_smem_bytes(int D, int Dv, int dtype) {
   if (D != Dv) return -1;
   switch (D) {
     case 64: return smem_of<64, 64>(dtype);
+    case 96: return smem_of<96, 96>(dtype);
     case 112: return smem_of<112, 112>(dtype);
     case 128: return smem_of<128, 128>(dtype);
     case 256: return smem_of<256, 256>(dtype);
@@ -679,8 +684,8 @@ extern "C" int flash_attention_fwd_smem_bytes(int D, int Dv, int dtype) {
 }
 
 // Plain C entry point (loaded with ctypes).  q and k are D wide, v and o Dv
-// wide; the pairs (D, Dv) taken are (64, 64), (112, 112), (128, 128),
-// (256, 256) and (192, 128).  Strides are in elements; the last dim of q,
+// wide; the pairs (D, Dv) taken are (64, 64), (96, 96), (112, 112),
+// (128, 128), (256, 256) and (192, 128).  Strides are in elements; the last dim of q,
 // k, v and o must be contiguous.  For bfloat16 the data pointers must be
 // 16-byte aligned and the batch, row and head strides multiples of 8 (the
 // wrapper checks).  dtype: 0 = float32, 1 = bfloat16.  Returns the
@@ -708,6 +713,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64: return (int)launch<64, 64>(p, B, dtype, s);
+    case 96: return (int)launch<96, 96>(p, B, dtype, s);
     case 112: return (int)launch<112, 112>(p, B, dtype, s);
     case 128: return (int)launch<128, 128>(p, B, dtype, s);
     case 256: return (int)launch<256, 256>(p, B, dtype, s);

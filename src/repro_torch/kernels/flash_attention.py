@@ -18,8 +18,9 @@ raises.  bfloat16 runs the tensor-core kernel, which copies 16 bytes at a
 time, so its inputs need 16-byte-aligned data and batch, row and head
 strides that are multiples of 8 elements (``_check`` raises otherwise;
 nothing is copied); float32 runs the CUDA-core kernel, which takes any
-strides.  The forward and the backward take the head-dim pairs
-``FWD_HEAD_DIMS``: v as wide as q and k, or q/k 192 and v 128 (MLA); any
+strides.  The forward takes the head-dim pairs ``FWD_HEAD_DIMS``: v as
+wide as q and k (64, 96, 112, 128 or 256), or q/k 192 and v 128 (MLA); the
+backward the same pairs but d 96 (``BWD_HEAD_DIMS``; ROADMAP A18b); any
 other pair raises before launch.  The backward follows the same rule for
 q, k, v and do: bfloat16 at the pairs of ``BWD_TC_HEAD_DIMS`` (head dim 64,
 112 or 128, and 192 / 128) runs tensor-core kernels that copy 16 bytes at a
@@ -27,7 +28,9 @@ time, and float32 (and bfloat16 at 256) CUDA-core kernels that take any
 strides.  Each function counts
 its own runs in a plain integer attribute (``flash_attention_fwd.launches``,
 ``flash_attention_plain.calls``, ``flash_attention_bwd.launches``,
-``flash_attention_bwd_plain.calls``) so a run can show which path it took.
+``flash_attention_bwd_plain.calls``) so a run can show which path it took;
+``flash_attention_fwd.noncausal_launches`` counts the forward's launches
+with ``causal=False`` (an encoder, a cross-attention) among its launches.
 """
 
 from __future__ import annotations
@@ -38,10 +41,13 @@ import math
 
 import torch
 
-HEAD_DIMS = (64, 112, 128, 256)
+HEAD_DIMS = (64, 96, 112, 128, 256)
 # (d of q and k, dv of v and o) the forward kernel takes: dv = d, and
 # DeepSeek-V3's MLA prefill (128 nope + 64 rope for q/k, 128 for v).
 FWD_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+# The pairs the backward kernels take: the forward's, less head dim 96
+# (phi-3-vision), whose backward is ROADMAP A18b.
+BWD_HEAD_DIMS = tuple(pair for pair in FWD_HEAD_DIMS if pair != (96, 96))
 # (d, dv) pairs whose bf16 backward runs on the tensor cores.
 BWD_TC_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -185,7 +191,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
     (B,Sk,Hkv,d); v: (B,Sk,Hkv,dv).
 
     On CUDA tensors this launches the Hopper kernel ((d, dv) in
-    ``FWD_HEAD_DIMS``: dv = d in 64, 112, 128, 256, or 192 and 128; float32
+    ``FWD_HEAD_DIMS``: dv = d in 64, 96, 112, 128, 256, or 192 and 128; float32
     or bfloat16; last dim contiguous; for bfloat16, 16-byte aligned data and
     strides in multiples of 8) on the current stream.  CPU tensors go to
     :func:`flash_attention_plain`.  Any other device raises."""
@@ -197,6 +203,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
     _check(q, k, v)
     o, lse = launch(_kernel_fn(), q, k, v, causal=causal, window=window, scale=scale)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.noncausal_launches += not causal
     return o, lse
 
 
@@ -221,6 +228,7 @@ def launch(fn, q, k, v, *, causal, window, scale):
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.noncausal_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +313,12 @@ def _bwd_kernel_fn():
 def _check_bwd(q, k, v, o, lse, do):
     _check_qkv(q, k, v)
     pair = (q.shape[3], v.shape[3])
-    if pair not in FWD_HEAD_DIMS:
+    if pair == (96, 96):
+        raise ValueError("head dims (d 96, dv 96) not supported by the backward kernel yet: "
+                         "phi-3-vision's backward is ROADMAP A18b")
+    if pair not in BWD_HEAD_DIMS:
         raise ValueError(f"head dims (d {pair[0]}, dv {pair[1]}) not supported by the "
-                         f"backward kernel (takes {FWD_HEAD_DIMS})")
+                         f"backward kernel (takes {BWD_HEAD_DIMS})")
     out_shape = q.shape[:3] + (v.shape[3],)
     for name, t in (("o", o), ("do", do)):
         if t.shape != out_shape or t.dtype != q.dtype or t.device != q.device:
@@ -330,11 +341,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=Non
     lse, and the output gradient do.
 
     On CUDA tensors this launches the Hopper kernels ((d, dv) in
-    ``FWD_HEAD_DIMS``; float32 or bfloat16; last dims contiguous; for
-    bfloat16 at the pairs of ``BWD_TC_HEAD_DIMS``, 16-byte aligned data and
-    strides in multiples of 8, which MLA's v, a view of the decompressed
-    (B,S,H,dn+dv) buffer, meets) on the current stream.  do is made contiguous first: autograd may hand over any
-    layout.  CPU tensors go to :func:`flash_attention_bwd_plain`.  Any other
+    ``BWD_HEAD_DIMS``: d 96 is refused, naming ROADMAP A18b; float32 or
+    bfloat16; last dims contiguous; for bfloat16 at the pairs of
+    ``BWD_TC_HEAD_DIMS``, 16-byte aligned data and strides in multiples of
+    8, which MLA's v, a view of the decompressed (B,S,H,dn+dv) buffer, meets)
+    on the current stream.  do is made contiguous first: autograd may hand
+    over any layout.  CPU tensors go to :func:`flash_attention_bwd_plain`.  Any other
     device raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,

@@ -161,13 +161,44 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return RMSNorm.apply(x, gamma, eps)
 
 
+class LayerNorm(torch.autograd.Function):
+    """The reference's layernorm, ``(x - mean) * rsqrt(var + eps) * gamma +
+    beta`` in f32 cast back to x's dtype, with a hand-written backward that
+    keeps only x and the f32 row mean and inverse deviation, as
+    :class:`RMSNorm` does: autograd of the same ops keeps f32 copies of x
+    (rwkv6's four norms a layer)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                eps: float) -> torch.Tensor:
+        ct = torch.promote_types(x.dtype, torch.float32)   # f32 (f64 only in gradcheck)
+        xf = x.to(ct)
+        mu = xf.mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt(xf.var(dim=-1, unbiased=False, keepdim=True) + eps)
+        ctx.save_for_backward(x, gamma, mu, rstd)
+        ctx.beta_dtype = beta.dtype
+        return ((xf - mu) * rstd * gamma.to(ct) + beta.to(ct)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, gamma, mu, rstd = ctx.saved_tensors
+        xhat = (x.to(rstd.dtype) - mu) * rstd
+        g = dy.to(rstd.dtype)
+        dx = dgamma = dbeta = None
+        if ctx.needs_input_grad[1]:
+            dgamma = (g * xhat).reshape(-1, x.shape[-1]).sum(0).to(gamma.dtype)
+        if ctx.needs_input_grad[2]:
+            dbeta = g.reshape(-1, x.shape[-1]).sum(0).to(ctx.beta_dtype)
+        if ctx.needs_input_grad[0]:
+            g = g * gamma.to(rstd.dtype)
+            dx = (rstd * (g - g.mean(dim=-1, keepdim=True)
+                          - xhat * (g * xhat).mean(dim=-1, keepdim=True))).to(x.dtype)
+        return dx, dgamma, dbeta, None
+
+
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, unbiased=False, keepdim=True)
-    out = (xf - mu) * torch.rsqrt(var + eps)
-    return (out * gamma.float() + beta.float()).to(x.dtype)
+    return LayerNorm.apply(x, gamma, beta, eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

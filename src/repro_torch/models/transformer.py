@@ -12,8 +12,11 @@ in place of the FFN), walked in that order; under ``cfg.mla`` every block's
 attention is :class:`~repro_torch.models.mla.MLA`.  The multi-token
 prediction block ``mtp`` (``cfg.mtp_depth``) adds its loss in training and
 is, as in the reference, unused when serving.  A MoE model's loss adds the
-Switch load-balancing loss of its MoE layers.  The vision frontend is
-ROADMAP A18.
+Switch load-balancing loss of its MoE layers.  A vision model
+(``cfg.frontend == "vision"``, phi-3-vision-4.2b) has ``patch_proj``: its
+prompt is the projected patch embeddings (the frontend is a stub, as in the
+reference) followed by the token embeddings (:func:`embed_inputs`); its
+loss is ROADMAP A18b.
 
 The KV cache is ``{"pos": int, <group>: {"k": (L,B,S,Hkv,hd), "v": ...}}``
 for each layer group (under MLA ``{"c": (L,B,S,kv_lora_rank), "pe":
@@ -174,7 +177,7 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
 class Decoder(tnn.Module):
     """emb (V, D), ln_f (D,), head (D, V) unless tied, and the layer groups
     of :func:`layer_groups`: layers[0..L), or dense_layers and moe_layers;
-    mtp when ``cfg.mtp_depth``."""
+    mtp when ``cfg.mtp_depth``; patch_proj (D, D) for the vision frontend."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -189,6 +192,8 @@ class Decoder(tnn.Module):
                                                for _ in range(n)))
         if cfg.mtp_depth:
             self.mtp = MTP(cfg, device, dtype)
+        if cfg.frontend == "vision":
+            self.patch_proj = nn.param(cfg.d_model, cfg.d_model, device=device, dtype=dtype)
         self.tp: nn.TP | None = None          # tensor-parallel group, if split
 
     def forward(self, batch: dict, opts: ModelOpts):
@@ -206,6 +211,8 @@ class Decoder(tnn.Module):
                 layer.reset_parameters(gen)
         if hasattr(self, "mtp"):
             self.mtp.reset_parameters(gen)
+        if hasattr(self, "patch_proj"):
+            nn.dense_init_(self.patch_proj, gen)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         w = self.emb.T if self.cfg.tie_embeddings else self.head
@@ -282,6 +289,9 @@ def decoder_forward(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelO
     attention forward runs twice per layer."""
     if opts.remat not in ("none", "full"):
         raise NotImplementedError(f"remat={opts.remat!r}: the port takes 'none' or 'full'")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend's loss is not "
+                                  f"ported yet (ROADMAP A18b)")
     tp = params.tp
     x = nn.embed_lookup(params.emb, batch["tokens"], tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -382,12 +392,26 @@ def ffn_part(lp: Block, h, cfg: ModelConfig, opts: ModelOpts):
     return nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, h, cfg.act)
 
 
-def decoder_prefill(params: Decoder, cache: dict, tokens, cfg: ModelConfig,
+def embed_inputs(params: Decoder, batch: dict, cfg: ModelConfig):
+    """Token (+ modality stub) embedding: (x (B, S_total, D), text offset).
+    A vision model's ``batch["patches"]`` (B, n_patches, D) is projected by
+    ``patch_proj`` and put before the token embeddings; the offset is the
+    number of patches (0 without them)."""
+    x = nn.embed_lookup(params.emb, batch["tokens"])
+    if cfg.frontend == "vision" and "patches" in batch:
+        pe = batch["patches"].to(x.dtype) @ params.patch_proj
+        return torch.cat([pe, x], dim=1), pe.shape[1]
+    return x, 0
+
+
+def decoder_prefill(params: Decoder, cache: dict, batch: dict, cfg: ModelConfig,
                     opts: ModelOpts | None = None):
-    """Prefill the cache from a full prompt (B, S).  Returns (cache, logits of
-    the last position (B, V))."""
+    """Prefill the cache from a full prompt, ``batch`` {"tokens": (B, S)[,
+    "patches": (B, n_patches, D)]}: the patches take the first positions
+    and the cache slots before the tokens', and ``cache["pos"]`` counts
+    them.  Returns (cache, logits of the last position (B, V))."""
     opts = opts or ModelOpts()
-    x = nn.embed_lookup(params.emb, tokens)
+    x, _ = embed_inputs(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     for name, _ in layer_groups(cfg):

@@ -22,13 +22,15 @@ class ServeEngine:
         self.max_len = max_len
 
     @torch.no_grad()
-    def generate(self, tokens: torch.Tensor, steps: int) -> torch.Tensor:
-        """tokens: prompt ids (B, S) on the model's device.  Returns the
+    def generate(self, batch, steps: int) -> torch.Tensor:
+        """batch: the prompt on the model's device, {"tokens": (B, S)} plus
+        the config's modality stub ("frames" or "patches", as
+        ``Model.prefill`` takes it), or a bare token tensor.  Returns the
         greedy continuation (B, steps + 1): the token after the prompt, then
         one per decode step."""
-        B = tokens.shape[0]
-        cache = self.model.init_cache(B, self.max_len)
-        cache, logits = self.model.prefill(self.params, cache, tokens)
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        cache = self.model.init_cache(tokens.shape[0], self.max_len)
+        cache, logits = self.model.prefill(self.params, cache, batch)
         out = []
         tok = logits.argmax(dim=-1)
         for _ in range(steps):

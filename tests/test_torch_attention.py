@@ -4,7 +4,8 @@
 runs) is held to the Pallas kernel in interpret mode on the Sq == Sk sweep
 and windows of tests/test_kernels.py, and to ``repro.kernels.ref`` for
 Sq < Sk and ragged lengths, which the Pallas kernel does not take; its lse
-is held to a logsumexp of the reference scores.  Tolerances are those of
+is held to a logsumexp of the reference scores, at head dim 96 and
+non-causal with Sq != Sk (cross-attention) too.  Tolerances are those of
 tests/test_kernels.py: f32 2e-4, bf16 3e-2.  The kernel itself is held to
 the plain version on the card (``gpu`` marker): o per row (max|Δ| of a row
 over max|plain| of that row) at those bounds, and lse, f32 on both sides,
@@ -25,6 +26,8 @@ from repro.models import attention as jattn
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
     _check,
+    _check_bwd,
+    flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -128,6 +131,47 @@ def test_plain_matches_ref_offset_and_ragged(Sq, Sk, window, causal, dtype):
     np.testing.assert_allclose(_f32(mine), _f32(want), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,d,causal", [
+    (150, 150, 96, True),         # phi-3-vision's head dim, ragged
+    (40, 90, 96, True),           # d 96, Sq < Sk
+    (40, 130, 64, False),         # non-causal Sq < Sk: cross-attention, prompt < frames
+    (150, 70, 64, False),         # non-causal Sq > Sk: a prompt longer than the frames
+    (70, 70, 96, False),          # the encoder's bidirectional self-attention at d 96
+])
+def test_plain_matches_ref_d96_and_noncausal(Sq, Sk, d, causal, dtype):
+    """The plain version at head dim 96 and non-causal with Sq != Sk (the
+    encoder-decoder's cross-attention) against repro.kernels.ref."""
+    (jq, jk, jv), (q, k, v) = _inputs(9, 2, Sq, Sk, 4, 2, d, dtype)
+    want = jref.attention_ref(jq, jk, jv, causal=causal)
+    o, lse = flash_attention_plain(q, k, v, causal=causal, block_q=32, block_k=64)
+    assert o.shape == (2, Sq, 4, d)
+    np.testing.assert_allclose(_f32(o), _f32(want), **TOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), _lse_ref(q, k, causal, 0), **TOL[dtype])
+
+
+def test_noncausal_attention_matches_jax_model_path():
+    """models.attention non-causal with Sq != Sk on the CPU equals the
+    reference's model-path attention (its cross-attention call)."""
+    (jq, jk, jv), (q, k, v) = _inputs(10, 2, 48, 80, 4, 4, 16, "float32")
+    want = jattn.attention(jq, jk, jv, causal=False, chunk_q=16, chunk_k=32)
+    got = tattn.attention(q, k, v, causal=False)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_refuses_d96_naming_a18b(dtype):
+    """The forward takes d 96; the backward does not (ROADMAP A18b): its
+    check raises before any launch, where the kernel's switch has no case."""
+    _, (q, k, v) = _inputs(11, 1, 8, 8, 2, 2, 96, dtype)
+    o, lse = flash_attention_plain(q, k, v)
+    with pytest.raises(ValueError, match="d 96, dv 96.*ROADMAP A18b"):
+        _check_bwd(q, k, v, o, lse, torch.ones_like(o))
+    _, (q, k, v) = _inputs(11, 1, 8, 8, 2, 2, 64, dtype)
+    o, lse = flash_attention_plain(q, k, v)
+    _check_bwd(q, k, v, o, lse, torch.ones_like(o))
+
+
 def test_attention_matches_jax_model_path():
     """models.attention on the CPU equals the reference's model-path attention."""
     (jq, jk, jv), (q, k, v) = _inputs(3, 2, 64, 64, 4, 1, 16, "float32")
@@ -215,6 +259,12 @@ def test_check_bf16_alignment(case):
     (2, 130, 190, 4, 2, 112, True, 0, False),
     (2, 130, 190, 4, 2, 128, True, 0, False),
     (2, 130, 190, 4, 2, 256, True, 0, False),
+    (2, 130, 190, 4, 2, 96, True, 0, False),     # phi-3-vision's head dim
+    (1, 300, 300, 8, 8, 96, True, 0, False),     # d 96, ragged
+    (2, 200, 200, 4, 4, 96, False, 0, False),    # d 96, bidirectional
+    (2, 128, 256, 4, 4, 64, False, 0, False),    # cross-attention: Sq < Sk, non-causal
+    (2, 300, 100, 4, 4, 64, False, 0, False),    # non-causal Sq > Sk
+    (2, 77, 130, 4, 2, 96, False, 0, False),     # non-causal Sq < Sk at d 96, ragged
 ])
 def test_kernel_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, d, causal, window, packed,
                                       dtype, cuda_device):
@@ -264,3 +314,15 @@ def test_kernel_at_192_128_matches_plain_on_card(B, Sq, Sk, Hq, Hkv, causal, v_v
     row_rel = np.abs(o - po).max(-1) / np.abs(po).max(-1)
     assert row_rel.max() <= TOL[dtype]["rtol"], row_rel.max()
     np.testing.assert_allclose(lse.cpu().numpy(), plse.cpu().numpy(), atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_backward_on_card_refuses_d96(cuda_device):
+    """A d-96 backward on the card raises naming ROADMAP A18b and launches nothing."""
+    _, (q, k, v) = _inputs(12, 1, 64, 64, 2, 2, 96, "bfloat16")
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    o, lse = flash_attention_fwd(q, k, v)
+    launches = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="ROADMAP A18b"):
+        flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
+    assert flash_attention_bwd.launches == launches

@@ -139,3 +139,80 @@ def test_rmsnorm_backward_matches_autograd(dtype):
         else:
             step = torch.finfo(torch.bfloat16).eps * want.float().abs().clamp_min(1e-30)
             assert bool(((got.float() - want.float()).abs() <= step).all())
+
+
+def _layernorm_autograd(x, gamma, beta, eps=1e-5):
+    """The same arithmetic as plain ops, differentiated by autograd."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(xf.var(dim=-1, unbiased=False, keepdim=True) + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
+def test_layernorm_backward_gradcheck():
+    gen = torch.Generator().manual_seed(2)
+    x = (1 + torch.randn(3, 4, 16, dtype=torch.float64, generator=gen)).requires_grad_()
+    g = (1 + 0.3 * torch.randn(16, dtype=torch.float64, generator=gen)).requires_grad_()
+    b = (0.3 * torch.randn(16, dtype=torch.float64, generator=gen)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda *a: tnn.layernorm(*a, 1e-5), (x, g, b))
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 64), (3, 48)])
+def test_layernorm_value_and_grads_match_jax(shape):
+    """Value and the gradients of x, gamma and beta against jax.vjp of the
+    reference's layernorm, f32 at the module's 1e-5."""
+    import jax
+
+    rng = _rng(6)
+    x = rng.normal(1, 2, shape).astype(np.float32)
+    g = rng.normal(1, 0.5, shape[-1:]).astype(np.float32)
+    b = rng.normal(0, 0.5, shape[-1:]).astype(np.float32)
+    dy = rng.normal(0, 1, shape).astype(np.float32)
+    (jx, jg, jb, jdy), (tx, tg, tb, tdy) = _pair(x, g, b, dy)
+    want, vjp = jax.vjp(lambda *a: jnn.layernorm(*a, 1e-5), jx, jg, jb)
+    tx, tg, tb = (t.requires_grad_() for t in (tx, tg, tb))
+    got = tnn.layernorm(tx, tg, tb, 1e-5)
+    got.backward(tdy)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for t, w in zip((tx, tg, tb), vjp(jdy)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5 * np.abs(w).max(),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_backward_matches_autograd(dtype):
+    """The hand-written backward against autograd of the same ops, bf16 x
+    beside f32 gains as in rwkv6: f32 at 1e-6 (relative to each gradient's
+    largest element); bf16 x's gradient within one bf16 step of autograd's
+    (both round one f32 value)."""
+    gen = torch.Generator().manual_seed(3)
+    x0 = (1 + 2 * torch.randn(2, 7, 64, generator=gen)).to(dtype)
+    g0 = 1 + 0.5 * torch.randn(64, generator=gen)
+    b0 = 0.5 * torch.randn(64, generator=gen)
+    dy = torch.randn(2, 7, 64, generator=gen).to(dtype)
+    grads = []
+    for fn in (tnn.layernorm, _layernorm_autograd):
+        x, g, b = (t.clone().requires_grad_() for t in (x0, g0, b0))
+        y = fn(x, g, b, 1e-5)
+        y.backward(dy)
+        grads.append((y.detach(), x.grad, g.grad, b.grad))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        if got.dtype == torch.float32:
+            scale = want.abs().max()
+            assert ((got - want).abs().max() / scale).item() < 1e-6
+        else:
+            step = torch.finfo(torch.bfloat16).eps * want.float().abs().clamp_min(1e-30)
+            assert bool(((got.float() - want.float()).abs() <= step).all())
+
+
+def test_layernorm_saves_no_f32_copy_of_x():
+    """What the backward keeps: x itself and two f32 values a row."""
+    x = torch.randn(4, 8, 64, dtype=torch.bfloat16, requires_grad=True)
+    g, b = torch.ones(64, requires_grad=True), torch.zeros(64, requires_grad=True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        tnn.layernorm(x, g, b)
+    big = [t for t in saved if t.numel() == x.numel()]
+    assert len(big) == 1 and big[0].dtype == torch.bfloat16
+    assert sum(t.numel() for t in saved if t.numel() != x.numel() and t.dim() == 3) == 2 * 32

@@ -18,7 +18,8 @@ from repro_torch.models import build
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORTED = ["llama2-7b", "gemma-2b", "gpt2-1.5b", "starcoder2-3b", "zamba2-7b", "rwkv6-1.6b",
-          "moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+          "moonshot-v1-16b-a3b", "deepseek-v3-671b", "seamless-m4t-large-v2",
+          "phi-3-vision-4.2b"]
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -38,7 +39,9 @@ def test_port_imports_no_jax_and_no_repro():
         "          'core.trace', 'health', 'health.monitor', 'health.flaky', 'obs',\n"
         "          'obs.recorder', 'obs.export', 'obs.report', 'analysis.sanitizer',\n"
         "          'analysis.tables', 'core.baselines', 'core.simulator', 'models.moe',\n"
-        "          'models.mla', 'configs.moonshot_v1_16b_a3b', 'configs.deepseek_v3_671b'):\n"
+        "          'models.mla', 'configs.moonshot_v1_16b_a3b', 'configs.deepseek_v3_671b',\n"
+        "          'models.encdec', 'configs.seamless_m4t_large_v2',\n"
+        "          'configs.phi_3_vision_4_2b'):\n"
         "    assert f'repro_torch.{m}' in mods, (m, mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

@@ -401,3 +401,41 @@ def test_moe_families_on_card_match_cpu(arch, dtype, cuda_device):
             _, _, again = moe.route(router, xg.cpu(), cfg.top_k)
             np.testing.assert_array_equal(again.sort(-1).values.numpy(),
                                           eg.cpu().sort(-1).values.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "phi-3-vision-4.2b"])
+def test_encdec_and_vision_on_card_match_cpu(arch, dtype, cuda_device):
+    """Cut seamless-m4t-large-v2 (2 + 2 layers, 4 heads of 64, 128 frames:
+    the non-causal kernel in the encoder and the cross-attention, Sq 100 <
+    Sk 128) and phi-3-vision-4.2b (2 layers, 2 heads of 96: the d 96
+    kernel, 16 patches) on the card and on the CPU from the same weights
+    and modality stub: prefill and 3 decode steps' logits agree at f32 1e-4
+    / bf16 3e-2, and the encoder-decoder's cross caches too."""
+    from repro_torch.launch.serve import prompt_batch
+
+    cut = {"seamless-m4t-large-v2": dict(n_layers=2, enc_layers=2, d_model=256, n_heads=4,
+                                         n_kv_heads=4, d_ff=512, n_frames=128),
+           "phi-3-vision-4.2b": dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2,
+                                     head_dim=96, d_ff=512, n_patches=16)}[arch]
+    cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
+    cpu = build(cfg, device="cpu")
+    gpu = build(cfg, device=cuda_device)
+    pc = cpu.init()
+    pg = gpu.load({k: v.to(cuda_device) for k, v in pc.state_dict().items()})
+    P = 100 + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    batch = {k: torch.from_numpy(a) for k, a in prompt_batch(cfg, 2, P, 0).items()}
+    cc, lc = cpu.prefill(pc, cpu.init_cache(2, P + 4), batch)
+    cg, lg = gpu.prefill(pg, gpu.init_cache(2, P + 4),
+                         {k: t.to(cuda_device) for k, t in batch.items()})
+    assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
+    if cfg.is_encdec:
+        for key in ("cross_k", "cross_v"):
+            assert _rel(cg[key].float().cpu(), cc[key].float()) < TOL[dtype], key
+    nxt = lc.argmax(-1)
+    for _ in range(3):
+        cc, lc = cpu.decode_step(pc, cc, nxt)
+        cg, lg = gpu.decode_step(pg, cg, nxt.to(cuda_device))
+        assert _rel(lg.float().cpu(), lc.float()) < TOL[dtype]
+        nxt = lc.argmax(-1)

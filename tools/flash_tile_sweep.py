@@ -51,6 +51,7 @@ SHAPES = [("llama2-7b prefill", 4, 512, 32, 32, 128),
           ("llama2-7b S=2048", 4, 2048, 32, 32, 128),
           ("zamba2-7b shared block", 4, 512, 32, 32, 112),
           ("gpt2-1.5b", 4, 512, 25, 25, 64),
+          ("phi-3-vision-4.2b prefill d=96", 4, 1088, 32, 32, 96),
           ("gemma-2b MQA", 4, 512, 8, 1, 256)]
 TILE_LINE = re.compile(r"^template <int D> struct Tile \{.*\};$", re.M)
 
