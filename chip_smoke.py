@@ -95,7 +95,12 @@ exits nonzero without printing a result:
             6 d + 4 dv operations, against the bytes of q, k, v, o, do, dq,
             dk, dv, lse and delta) and SDPA's backward (torch.autograd.grad
             of its output with the same do) as library_ms ("none" where SDPA
-            refuses dv != d)
+            refuses dv != d); the d 96 instantiation at phi-3-vision-4.2b's
+            train shape (B 4, S 1088 = 576 patches + 512 tokens, 32:32
+            heads) in bf16 and f32, and non-causal at seamless-m4t-large-v2's
+            encoder (B 4, S 1024, 16:16 heads, d 64) and cross-attention
+            (Sq 512 < Sk 1024), its decoder's causal self-attention, a ragged
+            Sq 100 < Sk 128 (bf16 and f32) and Sq 300 > Sk 128
   ssd_bwd_kernels, wkv6_bwd_kernels  the SSD-scan and WKV6 backward kernels
             against their plain explicit-chunked versions on the same inputs,
             at the train paths' shapes (zamba2-7b: B 4, S 512, 112 heads, x,
@@ -118,9 +123,13 @@ exits nonzero without printing a result:
             the backward's products); no library call computes either.  The
             bf16 WKV6 backward, like the SSD one, must agree bit for bit
             across two runs at the train shape
-  train_reference  small llama, zamba2 and rwkv6 (TRAIN_REFERENCE) trained 3 AdamW
+  train_reference  small llama, zamba2, rwkv6, seamless-m4t and phi-3-vision
+            (TRAIN_REFERENCE, the cuts of reference) trained 3 AdamW
             steps on the card and on the CPU from the same weights and
-            batches (batch 2, seq 100), as is, with ga_steps=2, with gc,
+            batches (batch 2, seq 100; 128 frames, or 16 patches before the
+            100 tokens, drawn as the launcher draws them: the non-causal
+            backward at Sq 100 < Sk 128 and the d 96 one), as is, with
+            ga_steps=2, with gc,
             and through compile_train_step on a one-rank NCCL group under
             ZeRO-Offload (moments in pinned host memory, checked) and ZeRO-3
             (FSDP2 around the kernels' autograd functions); the small
@@ -150,12 +159,19 @@ exits nonzero without printing a result:
             1) x 3 and backward 4 x 3, all at d 192 / dv 128), each first
             running step 1's forward + backward twice (loss, metrics and
             every gradient bit-equal) and reporting each step's ce, aux and
-            mtp; 0 plain calls; step ms, tokens/s, peak memory; then one
-            llama2-7b, one zamba2-7b, one rwkv6-1.6b and one step of each MoE
-            path under torch.profiler (the port kernels' shares of busy time,
-            idle share), and for the make_train_step paths a warm-up round and
-            SPLIT_ROUNDS more of each timed in two halves (medians):
-            forward + backward, then the optimizer update
+            mtp; then phi-3-vision-4.2b (32 layers, 576 patches before the
+            512 tokens) like llama2-7b (GC, bf16 moments; flash forward 2 x
+            32 x 3, backward 32 x 3, all at d 96) and seamless-m4t-large-v2
+            (24 + 24 layers, 1,024 frames) through the launcher like gpt2
+            (f32 AdamW, no GC; flash forward and backward 72 x 3 each, 48 x
+            3 of each non-causal); 0 plain calls; step ms, tokens/s, peak
+            memory; then one llama2-7b, one zamba2-7b, one rwkv6-1.6b, one
+            step of each MoE path, one phi-3-vision-4.2b and one
+            seamless-m4t-large-v2 step under torch.profiler (the port
+            kernels' shares of busy time, idle share), and for the
+            make_train_step paths a warm-up round and SPLIT_ROUNDS more of
+            each timed in two halves (medians): forward + backward, then the
+            optimizer update
   train_offload  llama2-7b at full width, bf16, batch 4, seq 512, through
             compile_train_step with ExecutionPlan(zero_stage=1, offload=True,
             gc=True) and OptConfig()'s f32 moments (53.9 GB) in pinned host
@@ -227,9 +243,9 @@ exits nonzero without printing a result:
 
 Then the kernel summary line (the forward's and the backward's d 192 /
 dv 128 instantiations on lines of their own, with the deepseek-v3-671b
-serve's and train's launches; the forward's d 96 one with phi-3-vision's,
-and its non-causal launches, seamless's, at the encoder and
-cross-attention shapes), the
+serve's and train's launches; their d 96 ones with phi-3-vision's serve
+and train launches, and their non-causal launches, seamless's served and
+trained, at the encoder and cross-attention shapes), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 f32 matmuls and convolutions run without TF32 (both backends' allow_tf32 set
@@ -555,6 +571,11 @@ def phase_kernels():
 # fourth the profile phase's (b 16 x s 1024; GA 2 and 4 split it in 8 and 4).
 # d is a pair (d, dv) for MLA (MLA_D), v a view of the (B, S, H, 128 + 128)
 # buffer as in CASES; the first such case is deepseek-v3-671b's train path.
+# The train shapes of phi-3-vision-4.2b (d 96) and seamless-m4t-large-v2
+# (non-causal, d 64) are reported beside the first case in the kernels line.
+D96_BWD_CASE = "phi-3-vision-4.2b train d=96 (576 patches + 512 text)"
+ENCODER_BWD_CASE = "seamless-m4t-large-v2 encoder, bidirectional"
+CROSS_BWD_CASE = "seamless-m4t-large-v2 cross-attention, Sq 512 < Sk 1024"
 BWD_CASES = [
     ("llama2-7b train", 4, 512, 512, 32, 32, 128, True, 0, torch.bfloat16),
     ("llama2-7b train f32", 4, 512, 512, 32, 32, 128, True, 0, torch.float32),
@@ -576,6 +597,14 @@ BWD_CASES = [
      torch.float32),
     ("MLA ragged S=300", 2, 300, 300, 128, 128, MLA_D, True, 0, torch.bfloat16),
     ("MLA Sq < Sk (128 after 512)", 2, 128, 640, 128, 128, MLA_D, True, 0, torch.bfloat16),
+    (D96_BWD_CASE, 4, 1088, 1088, 32, 32, 96, True, 0, torch.bfloat16),
+    ("phi-3-vision-4.2b train d=96 f32", 4, 1088, 1088, 32, 32, 96, True, 0, torch.float32),
+    (ENCODER_BWD_CASE, 4, 1024, 1024, 16, 16, 64, False, 0, torch.bfloat16),
+    (CROSS_BWD_CASE, 4, 512, 1024, 16, 16, 64, False, 0, torch.bfloat16),
+    ("seamless-m4t-large-v2 decoder self", 4, 512, 512, 16, 16, 64, True, 0, torch.bfloat16),
+    ("non-causal ragged Sq 100 < Sk 128", 2, 100, 128, 8, 8, 64, False, 0, torch.bfloat16),
+    ("non-causal Sq 300 > Sk 128", 2, 300, 128, 8, 8, 64, False, 0, torch.bfloat16),
+    ("non-causal Sq 100 < Sk 128 f32", 2, 100, 128, 8, 8, 64, False, 0, torch.float32),
 ]
 
 
@@ -600,9 +629,11 @@ def phase_bwd_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, failed = [], []
+    mains = (D96_BWD_CASE, ENCODER_BWD_CASE, CROSS_BWD_CASE)
     for i, (label, B, Sq, Sk, Hq, Hkv, d, causal, window, dt) in enumerate(BWD_CASES):
         d, dv = d if isinstance(d, tuple) else (d, d)
-        main = i == 0 or (dv != d and not any(r["dv"] != r["d"] for r in rows))
+        main = (i == 0 or (dv != d and not any(r["dv"] != r["d"] for r in rows))
+                or label in mains)
         q = torch.randn((B, Sq, Hq, d), generator=gen, device="cuda").to(dt)
         do = torch.randn((B, Sq, Hq, dv), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Sk, Hkv, d), generator=gen, device="cuda").to(dt)
@@ -663,7 +694,12 @@ def phase_bwd_kernels():
     emit("bwd_kernels", kernel="flash_attention_bwd", cases=rows)
     if failed:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {failed}")
-    return rows[0], next(r for r in rows if r["dv"] != r["d"])
+    by_label = {r["case"]: r for r in rows}
+    return {"flash_attention_bwd": rows[0],
+            "flash_attention_bwd_mla": next(r for r in rows if r["dv"] != r["d"]),
+            "flash_attention_bwd_d96": by_label[D96_BWD_CASE],
+            "flash_attention_bwd_noncausal": dict(by_label[ENCODER_BWD_CASE],
+                                                  other_case=by_label[CROSS_BWD_CASE])}
 
 
 # (label, B, S, H, P, N, h0, dtype); the first is the serving path's shape
@@ -1207,10 +1243,26 @@ REFERENCE = {
 }
 
 
-# Served only: their losses and the flash backward at d 96 are ROADMAP A18b,
-# so train_reference leaves them out.
-SERVE_ONLY = ("seamless-m4t-large-v2", "phi-3-vision-4.2b")
-TRAIN_REFERENCE = {arch: v for arch, v in REFERENCE.items() if arch not in SERVE_ONLY}
+# Every cut model of REFERENCE is also trained on the card against the CPU.
+TRAIN_REFERENCE = REFERENCE
+
+
+def train_batch_on(cfg, data, step: int, device) -> dict[str, torch.Tensor]:
+    """Step ``step``'s batch as the launcher makes it (launch.train.train_batch:
+    the data source's tokens, and the modality stub drawn from the step; a
+    vision model's tokens cut to seq_len - n_patches) on ``device``."""
+    from repro_torch.launch.train import train_batch
+
+    out = {k: torch.from_numpy(a).to(device)
+           for k, a in train_batch(cfg, data.batch(step), step).items()}
+    out["tokens"] = out["tokens"].long()
+    return out
+
+
+def stub_seq(cfg, n_text: int) -> int:
+    """The launcher's seq for ``n_text`` tokens: a vision model's counts its
+    patches too."""
+    return n_text + (cfg.n_patches if cfg.frontend == "vision" else 0)
 
 
 def prompt_on(cfg, B: int, n_text: int, device) -> dict[str, torch.Tensor]:
@@ -1399,15 +1451,19 @@ def phase_train_reference():
              "offload": ExecutionPlan(zero_stage=1, offload=True),
              "zero3": ExecutionPlan(zero_stage=3)}
     mesh = single_device_mesh("cuda")
-    specs = {"tokens": torch.empty((2, 100), dtype=torch.long, device="meta")}
-    data = make_source(DataConfig(vocab_size=512, seq_len=100, global_batch=2, seed=SEED))
-    batch0 = torch.from_numpy(data.batch(0)).long()
     optcfg = OptConfig(lr=1e-3)
     out, failed = {}, []
     for arch, (what, cut) in TRAIN_REFERENCE.items():
         is_moe = "n_experts" in cut
         for dtype, (tol_loss, tol_grad) in TRAIN_TOL.items():
             cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **cut)
+            # 100 tokens a row, after 16 patches for the vision model, and
+            # the encoder-decoder's 128 frames
+            data = make_source(DataConfig(vocab_size=512, seq_len=stub_seq(cfg, 100),
+                                          global_batch=2, seed=SEED))
+            batch0 = train_batch_on(cfg, data, 0, "cpu")
+            specs = {k: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                     for k, t in batch0.items()}
             for label, plan in plans.items():
                 if is_moe and label in MOE_SKIPPED_PLANS:
                     continue
@@ -1424,7 +1480,7 @@ def phase_train_reference():
                     sg, step_g = opt_init(pg, optcfg), make_train_step(gpu, plan, optcfg)
 
                 def grads_of(m, p):
-                    loss, _ = m.loss(p, {"tokens": batch0.to(m.device)})
+                    loss, _ = m.loss(p, {k: t.to(m.device) for k, t in batch0.items()})
                     loss.backward()
                     g = {n: whole(t.grad).detach().cpu() for n, t in p.named_parameters()}
                     p.zero_grad(set_to_none=True)
@@ -1443,17 +1499,17 @@ def phase_train_reference():
                 if dtype == "bfloat16" and arch in NOISY_BF16:
                     f32 = build(cfg.with_(dtype="float32"), device="cpu", opts=opts)
                     p32 = f32.load({k: v.float() for k, v in pc.state_dict().items()})
-                    f32.loss(p32, {"tokens": batch0})[0].backward()
+                    f32.loss(p32, batch0)[0].backward()
                     noise = {n: _rel(grads[0][n], t.grad) for n, t in p32.named_parameters()}
                     del f32, p32
                 bound = {n: tol_grad + 2 * noise[n] for n in grad_rel}
                 sc, step_c = opt_init(pc, optcfg), make_train_step(cpu, plan, optcfg)
                 loss_rel, losses = [], []
                 for i in range(3):
-                    toks = torch.from_numpy(data.batch(i)).long()
+                    b = train_batch_on(cfg, data, i, "cpu")
                     (pc, sc, mc), (pg, sg, mg), _, _ = replayed(
-                        lambda: step_c(pc, sc, {"tokens": toks}),
-                        lambda: step_g(pg, sg, {"tokens": toks.cuda()}))
+                        lambda: step_c(pc, sc, b),
+                        lambda: step_g(pg, sg, {k: t.cuda() for k, t in b.items()}))
                     loss_rel.append(abs(mg["loss"].item() - mc["loss"].item())
                                     / abs(mc["loss"].item()))
                     losses.append(mg["loss"].item())
@@ -1480,8 +1536,9 @@ def phase_train_reference():
     free_device_memory()
     emit("train_reference", cfg={arch: f"{arch} widths cut to {what}" for arch, (what, _)
                                  in TRAIN_REFERENCE.items()},
-         serve_only={arch: "training is ROADMAP A18b" for arch in SERVE_ONLY},
-         batch="batch 2, seq 100, AdamW lr 1e-3, 3 steps", tol_loss_grad=TRAIN_TOL,
+         batch="batch 2, seq 100 (after 16 patches for phi-3-vision; 128 frames for "
+         "seamless-m4t, drawn as the launcher draws them), AdamW lr 1e-3, 3 steps",
+         tol_loss_grad=TRAIN_TOL,
          plans={label: plan.strategy for label, plan in plans.items()},
          moe_plans_skipped={label: "the MoE family's plans across a mesh are ROADMAP A14b"
                             for label in MOE_SKIPPED_PLANS},
@@ -1511,14 +1568,15 @@ def reset_counts(counters) -> None:
         plain.calls = 0
     counters["wkv6_fwd"][0].decode_launches = 0
     counters["flash_attention_fwd"][0].noncausal_launches = 0
+    counters["flash_attention_bwd"][0].noncausal_launches = 0
 
 
 def read_counts(counters) -> tuple[dict[str, int], dict[str, int]]:
     """(kernel launches, plain-version calls) since reset_counts."""
     launches = {name: fwd.launches for name, (fwd, _) in counters.items()}
     launches["wkv6_decode"] = counters["wkv6_fwd"][0].decode_launches
-    launches["flash_attention_fwd_noncausal"] = counters["flash_attention_fwd"][0] \
-        .noncausal_launches
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        launches[f"{kname}_noncausal"] = counters[kname][0].noncausal_launches
     return launches, {name: plain.calls for name, (_, plain) in counters.items()}
 
 
@@ -1753,6 +1811,17 @@ TRAINED = {
     "deepseek-v3-671b train": lambda cfg, n: {
         "flash_attention_fwd": (2 * cfg.n_layers + cfg.mtp_depth) * n,
         "flash_attention_bwd": (cfg.n_layers + cfg.mtp_depth) * n},
+    # GC as llama2-7b's, every launch at d 96 over 576 patches + 512 tokens
+    "phi-3-vision-4.2b train": lambda cfg, n: {"flash_attention_fwd": 2 * cfg.n_layers * n,
+                                               "flash_attention_bwd": cfg.n_layers * n},
+    # the launcher, no GC: each encoder layer (non-causal), each decoder
+    # layer's self (causal) and cross-attention (non-causal, Sq 512 < Sk
+    # 1024), once forward and once backward a step
+    "seamless-m4t-large-v2 train": lambda cfg, n: {
+        "flash_attention_fwd": (cfg.enc_layers + 2 * cfg.n_layers) * n,
+        "flash_attention_fwd_noncausal": (cfg.enc_layers + cfg.n_layers) * n,
+        "flash_attention_bwd": (cfg.enc_layers + 2 * cfg.n_layers) * n,
+        "flash_attention_bwd_noncausal": (cfg.enc_layers + cfg.n_layers) * n},
 }
 # The trained MoE paths, cut in depth to fit one card with their gradients
 # and bf16 moments: (what was cut, the cut, AdamW's learning rate).
@@ -1785,6 +1854,9 @@ TRACE_SHARES = {
                          "wkv6_bwd_chunks": "wkv6_bwd_chunk_kernel"},
     "moonshot-v1-16b-a3b train": {"flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
     "deepseek-v3-671b train": {"flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
+    "phi-3-vision-4.2b train": {"flash_fwd": "flash_fwd_bf16_kernel", "flash_bwd": "flash_bwd_"},
+    "seamless-m4t-large-v2 train": {"flash_fwd": "flash_fwd_bf16_kernel",
+                                    "flash_bwd": "flash_bwd_"},
 }
 
 
@@ -1830,10 +1902,12 @@ def step1_repeat(model, params, batch) -> dict:
 
 
 def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
-    """llama2-7b, zamba2-7b, or a MoE path of TRAIN_CUT (cut in depth), bf16,
-    batch 4, seq 512, through make_train_step with ExecutionPlan(gc=True)
-    and AdamW with bf16 moments (f32 moments would need 6.74e9 x 12 bytes =
-    80.9 GB for llama2-7b), on one fixed batch; then a profile of one step,
+    """llama2-7b, zamba2-7b, phi-3-vision-4.2b (576 patches before the 512
+    tokens, drawn as the launcher draws them) or a MoE path of TRAIN_CUT (cut
+    in depth), bf16, batch 4, seq 512, through make_train_step with
+    ExecutionPlan(gc=True) and AdamW with bf16 moments (f32 moments would
+    need 6.74e9 x 12 bytes = 80.9 GB for llama2-7b), on one fixed batch;
+    then a profile of one step,
     and a step's two halves (forward + backward, the update) timed apart.  A
     MoE path first runs step 1's forward + backward twice, which must agree
     bit for bit, and reports each step's ce / aux / mtp.  Returns the
@@ -1856,9 +1930,10 @@ def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
     params = model.init()
     n_params = sum(p.numel() for p in params.parameters())
     step = make_train_step(model, plan, optcfg)
-    data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-                                  seed=SEED))
-    batch = {"tokens": torch.from_numpy(data.batch(0)).long().cuda()}
+    data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=stub_seq(cfg, S),
+                                  global_batch=B, seed=SEED))
+    batch = train_batch_on(cfg, data, 0, "cuda")
+    positions = stub_seq(cfg, S)
     repeat = None
     if cfg.n_experts:
         repeat = step1_repeat(model, params, batch)
@@ -1889,6 +1964,8 @@ def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
          loss_parts=parts if cfg.n_experts else None, loss_after_last_step=final,
          grad_norms=gnorms, step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
          tokens_per_s=B * S / step_ms * 1e3, max_memory_allocated=peak,
+         **({"patches": cfg.n_patches, "positions_per_s": B * positions / step_ms * 1e3}
+            if positions != S else {}),
          step1_repeat=repeat, launches=launches, plain_calls=plain_calls)
     if not (np.isfinite(losses).all() and np.isfinite(final) and final < losses[0]):
         raise AssertionError(f"{path}: loss did not fall on one batch: {losses} -> {final}")
@@ -2074,10 +2151,12 @@ def phase_train_trace(path: str, run_step, shares: dict[str, str]) -> None:
 
 
 def phase_train_launcher(arch: str, steps: int = 3) -> dict[str, int]:
-    """gpt2-1.5b or rwkv6-1.6b, bf16, batch 4, seq 512, through the launcher
+    """gpt2-1.5b, rwkv6-1.6b or seamless-m4t-large-v2 (1,024 frames drawn by
+    the launcher), bf16, batch 4, seq 512, through the launcher
     (launch.train.train) with its own f32 AdamW; the step times are the
     launcher's own (each step up to reading its loss).  For the paths in
-    TRACE_SHARES (rwkv6-1.6b), one more step under the profiler."""
+    TRACE_SHARES (rwkv6-1.6b, seamless-m4t-large-v2), one more step under
+    the profiler."""
     from repro_torch import configs
     from repro_torch.launch.train import train
 
@@ -2100,6 +2179,7 @@ def phase_train_launcher(arch: str, steps: int = 3) -> dict[str, int]:
          optimizer="adamw lr 1e-3, f32 moments (the launcher's)", steps=steps,
          losses=out["losses"], step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
          tokens_per_s=B * S / step_ms * 1e3, max_memory_allocated=peak,
+         **({"frames": cfg.n_frames} if cfg.is_encdec else {}),
          launches=launches, plain_calls=plain_calls)
     if not np.isfinite(out["losses"]).all():
         raise AssertionError(f"{path}: non-finite loss {out['losses']}")
@@ -2108,7 +2188,7 @@ def phase_train_launcher(arch: str, steps: int = 3) -> dict[str, int]:
 
         data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                       seed=SEED))
-        batch = {"tokens": torch.from_numpy(data.batch(steps)).long().cuda()}
+        batch = train_batch_on(cfg, data, steps, "cuda")
         phase_train_trace(path, lambda: out["step_fn"](out["params"], out["opt_state"], batch),
                           TRACE_SHARES[path])
     del out
@@ -2706,7 +2786,7 @@ def main() -> int:
     by_path = {arch: phase_serve(arch) for arch in SERVED}
     # The training phases run after serving, so that the serve phases meet the
     # allocator in the state they always have (their peaks compare to the byte).
-    mains["flash_attention_bwd"], mains["flash_attention_bwd_mla"] = phase_bwd_kernels()
+    mains.update(phase_bwd_kernels())
     mains["ssd_scan_bwd"] = phase_ssd_bwd_kernels()
     mains["wkv6_bwd"] = phase_wkv_bwd_kernels()
     phase_train_reference()
@@ -2718,6 +2798,8 @@ def main() -> int:
     by_path["llama2-7b train offload"] = phase_train_offload(peaks["llama2-7b"])
     for arch in TRAIN_CUT:
         by_path[f"{arch} train"], _ = phase_train_fixed(arch)
+    by_path["phi-3-vision-4.2b train"], _ = phase_train_fixed("phi-3-vision-4.2b")
+    by_path["seamless-m4t-large-v2 train"] = phase_train_launcher("seamless-m4t-large-v2")
     prof = phase_profile()
     by_path[f"{PROFILE_ARCH} profile"] = prof["launches"]
     sched = phase_schedule(prof)
@@ -2743,24 +2825,23 @@ def main() -> int:
                      "wkv_chunked; no Pallas kernel)", "max_abs_err"),
         "wkv6_decode": ("wkv6_fwd.cu", "src/repro/kernels/wkv6.py:76", "max_abs_err_y"),
     }
-    # The d 192 / dv 128 instantiations of the forward and the backward, the
-    # forward's d 96 one and its non-causal launches, on lines of their own:
-    # their launches are the deepseek-v3-671b serve's and train's (every one
-    # of which is MLA), the phi-3-vision-4.2b serve's (every one at d 96) and
-    # the non-causal ones (seamless-m4t-large-v2's encoder and
-    # cross-attention); flash_attention_fwd's and _bwd's counts hold them too.
-    mla_paths = ("deepseek-v3-671b", "deepseek-v3-671b train")
+    # The d 192 / dv 128, d 96 and non-causal launches of the forward and the
+    # backward, on lines of their own: their launches are the
+    # deepseek-v3-671b serve's and train's (every one of which is MLA), the
+    # phi-3-vision-4.2b serve's and train's (every one at d 96) and the
+    # non-causal ones (seamless-m4t-large-v2's encoder and cross-attention,
+    # served and trained); flash_attention_fwd's and _bwd's counts hold them
+    # too.
+    paths = {"_mla": ("deepseek-v3-671b", "deepseek-v3-671b train"),
+             "_d96": ("phi-3-vision-4.2b", "phi-3-vision-4.2b train")}
     variants = {"_mla": " (d 192, dv 128)", "_d96": " (d 96)",
                 "_noncausal": " (non-causal)"}
-    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
-        sources[f"{kname}_mla"] = sources[kname]
-        for arch, counts in by_path.items():
-            counts[f"{kname}_mla"] = counts.get(kname, 0) if arch in mla_paths else 0
-    for suffix in ("_d96", "_noncausal"):
-        sources[f"flash_attention_fwd{suffix}"] = sources["flash_attention_fwd"]
-    for arch, counts in by_path.items():
-        counts["flash_attention_fwd_d96"] = counts["flash_attention_fwd"] \
-            if arch == "phi-3-vision-4.2b" else 0
+    for suffix in variants:
+        for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+            sources[kname + suffix] = sources[kname]
+            for arch, counts in by_path.items():
+                if suffix in paths:
+                    counts[kname + suffix] = counts.get(kname, 0) if arch in paths[suffix] else 0
     mains["flash_attention_fwd_noncausal"] = dict(mains["flash_attention_fwd_encoder"],
                                                   other_case=mains["flash_attention_fwd_cross"])
     kernels = []
@@ -2784,7 +2865,7 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             **({"other_case": {k: main_case["other_case"][k]
-                               for k in ("case", "max_abs_err_o", "kernel_ms", "plain_ms",
+                               for k in ("case", err_key, "kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")}}
                if "other_case" in main_case else {}),
         })

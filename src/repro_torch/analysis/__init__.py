@@ -2,9 +2,9 @@
 ``repro.analysis``: a runtime ``SchedSanitizer``
 (``repro_torch.analysis.sanitizer``) that cross-checks the incremental
 engine's persistent indexes against recomputed ground truth, enabled by
-``SchedulerConfig(sanitize=True)`` or ``REPRO_SANITIZE=1``.  The
-reference's static invariant linter (``repro.analysis.lint``) is not
-ported yet (ROADMAP A13d).
+``SchedulerConfig(sanitize=True)`` or ``REPRO_SANITIZE=1``; and the static
+invariant linter (``python -m repro_torch.analysis.lint``: the house rules
+of ``repro_torch.analysis.rules`` over the port's own source).
 
 This module stays import-light: the scheduler imports it for
 ``sanitize_enabled`` at module load, and the sanitizer imports the

@@ -18,9 +18,9 @@
 //
 // Every kernel is templated on the two head dims <DK, DV>, as the forward
 // (flash_attention_fwd.cu): Q, K, dq and dk rows are DK wide, V, O, dO and
-// dv rows DV wide.  The pairs built are (d, d) for d in 64, 112, 128, 256
-// and DeepSeek-V3's MLA pair (192, 128) (128 nope + 64 rope for q/k, 128 for
-// v); for DK == DV the code is the one-dim kernel it was.
+// dv rows DV wide.  The pairs built are (d, d) for d in 64, 96, 112, 128,
+// 256 and DeepSeek-V3's MLA pair (192, 128) (128 nope + 64 rope for q/k, 128
+// for v); for DK == DV the code is the one-dim kernel it was.
 //
 // Two kernels, run in this order on one stream:
 //   * dq kernel, one block per (q tile, q head, batch), as pass A of the
@@ -44,8 +44,8 @@
 // 0.113 and 0.200 ms, the bytes again.  Both passes recompute S and dP
 // (seven products, not five): the price of summing without atomics.
 //
-// bf16 at (64, 64), (112, 112), (128, 128) and (192, 128) (the training
-// paths): tensor-core kernels built from the forward kernel's pieces
+// bf16 at (64, 64), (96, 96), (112, 112), (128, 128) and (192, 128) (the
+// training paths): tensor-core kernels built from the forward kernel's pieces
 // (flash_attention_fwd.cu): 4 warps a block, each owning 16 rows; operands
 // copied by cp.async.cg 16 bytes a thread into bf16 shared memory with rows
 // padded by 16 bytes, moved by ldmatrix (.trans where the product's depth
@@ -64,7 +64,10 @@
 //     S^T = K Q^T, dP^T = V dO^T, then dv += P^T dO and dk += dS^T Q, with
 //     each column's lse and delta read from shared memory.  dk and dv
 //     ((dk + dv)/8 x 4 floats a thread: 160 at (192, 128), against 128 at
-//     (128, 128)) stay in registers.
+//     (128, 128) and 96 at (96, 96)) stay in registers.  At d 96 the rows
+//     are 104 elements (208 bytes) apart in shared memory, as in the
+//     forward: the 8 rows an ldmatrix reads fall in 8 different 16-byte
+//     bank groups.
 // Left out: wgmma, TMA, warp specialisation, and one K/V tile shared by the
 // q heads of a group in the dq pass.
 //
@@ -423,7 +426,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels (d = 64, 112, 128)
+// bf16: tensor-core kernels (dk < 256)
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -924,8 +927,9 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 runs the tensor-core kernels at dk < 256 ((64, 64), (112, 112),
-// (128, 128), (192, 128)); f32, and bf16 at 256, the CUDA-core ones.
+// bf16 runs the tensor-core kernels at dk < 256 ((64, 64), (96, 96),
+// (112, 112), (128, 128), (192, 128)); f32, and bf16 at 256, the CUDA-core
+// ones.
 // dtype: 0 = float32, 1 = bfloat16.
 template <int DK, int DV>
 constexpr bool on_tensor_cores() { return DK < 256; }
@@ -960,6 +964,7 @@ extern "C" int flash_attention_bwd_smem_bytes(int D, int Dv, int dtype, int kern
   if (D != Dv) return -1;
   switch (D) {
     case 64: return smem_of<64, 64>(dtype, kernel);
+    case 96: return smem_of<96, 96>(dtype, kernel);
     case 112: return smem_of<112, 112>(dtype, kernel);
     case 128: return smem_of<128, 128>(dtype, kernel);
     case 256: return smem_of<256, 256>(dtype, kernel);
@@ -968,8 +973,8 @@ extern "C" int flash_attention_bwd_smem_bytes(int D, int Dv, int dtype, int kern
 }
 
 // Plain C entry point (loaded with ctypes).  q and k are D wide, v, o and do
-// Dv wide; the pairs (D, Dv) taken are (64, 64), (112, 112), (128, 128),
-// (256, 256) and (192, 128).  Strides of q, k, v, o and do are in elements,
+// Dv wide; the pairs (D, Dv) taken are (64, 64), (96, 96), (112, 112),
+// (128, 128), (256, 256) and (192, 128).  Strides of q, k, v, o and do are in elements,
 // their last dim contiguous; for bfloat16 at D < 256 the data of q, k, v and
 // do must be 16-byte aligned and their batch, row and head strides multiples
 // of 8 (the wrapper checks).  lse and delta are (B,Hq,Sq) f32, contiguous;
@@ -1005,6 +1010,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64: return (int)launch<64, 64>(p, B, dtype, s);
+    case 96: return (int)launch<96, 96>(p, B, dtype, s);
     case 112: return (int)launch<112, 112>(p, B, dtype, s);
     case 128: return (int)launch<128, 128>(p, B, dtype, s);
     case 256: return (int)launch<256, 256>(p, B, dtype, s);

@@ -20,17 +20,17 @@ strides that are multiples of 8 elements (``_check`` raises otherwise;
 nothing is copied); float32 runs the CUDA-core kernel, which takes any
 strides.  The forward takes the head-dim pairs ``FWD_HEAD_DIMS``: v as
 wide as q and k (64, 96, 112, 128 or 256), or q/k 192 and v 128 (MLA); the
-backward the same pairs but d 96 (``BWD_HEAD_DIMS``; ROADMAP A18b); any
-other pair raises before launch.  The backward follows the same rule for
-q, k, v and do: bfloat16 at the pairs of ``BWD_TC_HEAD_DIMS`` (head dim 64,
-112 or 128, and 192 / 128) runs tensor-core kernels that copy 16 bytes at a
-time, and float32 (and bfloat16 at 256) CUDA-core kernels that take any
-strides.  Each function counts
-its own runs in a plain integer attribute (``flash_attention_fwd.launches``,
-``flash_attention_plain.calls``, ``flash_attention_bwd.launches``,
-``flash_attention_bwd_plain.calls``) so a run can show which path it took;
-``flash_attention_fwd.noncausal_launches`` counts the forward's launches
-with ``causal=False`` (an encoder, a cross-attention) among its launches.
+backward the same pairs (``BWD_HEAD_DIMS``); any other pair raises before
+launch.  The backward follows the same rule for q, k, v and do: bfloat16
+at the pairs of ``BWD_TC_HEAD_DIMS`` (head dim 64, 96, 112 or 128, and
+192 / 128) runs tensor-core kernels that copy 16 bytes at a time, and
+float32 (and bfloat16 at 256) CUDA-core kernels that take any strides.
+Each function counts its own runs in a plain integer attribute
+(``flash_attention_fwd.launches``, ``flash_attention_plain.calls``,
+``flash_attention_bwd.launches``, ``flash_attention_bwd_plain.calls``) so a
+run can show which path it took; ``flash_attention_fwd.noncausal_launches``
+and ``flash_attention_bwd.noncausal_launches`` count the launches with
+``causal=False`` (an encoder, a cross-attention) among their launches.
 """
 
 from __future__ import annotations
@@ -45,11 +45,10 @@ HEAD_DIMS = (64, 96, 112, 128, 256)
 # (d of q and k, dv of v and o) the forward kernel takes: dv = d, and
 # DeepSeek-V3's MLA prefill (128 nope + 64 rope for q/k, 128 for v).
 FWD_HEAD_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
-# The pairs the backward kernels take: the forward's, less head dim 96
-# (phi-3-vision), whose backward is ROADMAP A18b.
-BWD_HEAD_DIMS = tuple(pair for pair in FWD_HEAD_DIMS if pair != (96, 96))
+# The pairs the backward kernels take: the forward's.
+BWD_HEAD_DIMS = FWD_HEAD_DIMS
 # (d, dv) pairs whose bf16 backward runs on the tensor cores.
-BWD_TC_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (192, 128))
+BWD_TC_HEAD_DIMS = ((64, 64), (96, 96), (112, 112), (128, 128), (192, 128))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -313,9 +312,6 @@ def _bwd_kernel_fn():
 def _check_bwd(q, k, v, o, lse, do):
     _check_qkv(q, k, v)
     pair = (q.shape[3], v.shape[3])
-    if pair == (96, 96):
-        raise ValueError("head dims (d 96, dv 96) not supported by the backward kernel yet: "
-                         "phi-3-vision's backward is ROADMAP A18b")
     if pair not in BWD_HEAD_DIMS:
         raise ValueError(f"head dims (d {pair[0]}, dv {pair[1]}) not supported by the "
                          f"backward kernel (takes {BWD_HEAD_DIMS})")
@@ -341,8 +337,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=Non
     lse, and the output gradient do.
 
     On CUDA tensors this launches the Hopper kernels ((d, dv) in
-    ``BWD_HEAD_DIMS``: d 96 is refused, naming ROADMAP A18b; float32 or
-    bfloat16; last dims contiguous; for bfloat16 at the pairs of
+    ``BWD_HEAD_DIMS``; float32 or bfloat16; last dims contiguous; for bfloat16 at the pairs of
     ``BWD_TC_HEAD_DIMS``, 16-byte aligned data and strides in multiples of
     8, which MLA's v, a view of the decompressed (B,S,H,dn+dv) buffer, meets)
     on the current stream.  do is made contiguous first: autograd may hand
@@ -358,6 +353,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=Non
     out = launch_bwd(_bwd_kernel_fn(), q, k, v, o, lse, do, causal=causal, window=window,
                      scale=scale)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.noncausal_launches += not causal
     return out
 
 
@@ -386,6 +382,7 @@ def launch_bwd(fn, q, k, v, o, lse, do, *, causal, window, scale):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.noncausal_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

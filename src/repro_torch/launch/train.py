@@ -12,8 +12,16 @@ card refuses them up front.  A run resumes from the latest checkpoint in
 ``--ckpt-dir``; a restart may carry another ``--plan`` (the reconfiguration
 Rubick drives), and a checkpoint written by ``repro.launch.train`` resumes
 here as well as the other way round.  The data are the reference's
-synthetic tokens from the same seed, so both frameworks see the same
-batches.
+synthetic tokens from the same seed, and the modality stubs are drawn as the
+reference's launcher draws them (:func:`train_batch`), so both frameworks
+see the same batches:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \
+        --full --steps 10 --batch 4 --seq 512
+
+``--seq`` counts a vision model's patches and its text, as the reference's
+does, so it must exceed ``n_patches`` (the reference takes a shorter one
+and slices the tokens with a negative end: ROADMAP Quirks).
 """
 
 from __future__ import annotations
@@ -22,10 +30,42 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 
-def build_runtime(arch: str, reduced: bool, plan_kw: dict, remat: bool, device, seed: int):
+def train_batch(cfg, tokens: np.ndarray, step: int) -> dict[str, np.ndarray]:
+    """Step ``step``'s batch from the data source's tokens (B, seq), as the
+    reference's launcher makes it: an encoder-decoder takes "frames" (B,
+    n_frames, D) and a vision decoder "patches" (B, n_patches, D), each
+    ``np.random.default_rng(step).normal(0, 0.02, ...)`` cast to f32, and
+    the vision decoder's tokens are cut to ``seq - n_patches`` (``seq``
+    counts the patches).  A ``seq`` at most ``n_patches`` raises."""
+    from repro_torch.models.api import stub_key
+
+    key = stub_key(cfg)
+    if key is None:
+        return {"tokens": tokens}
+    B, seq = tokens.shape
+    if key == "patches":
+        check_seq(cfg, seq)
+        n, tokens = cfg.n_patches, tokens[:, :seq - cfg.n_patches]
+    else:
+        n = cfg.n_frames
+    stub = np.random.default_rng(step).normal(0, 0.02, (B, n, cfg.d_model))
+    return {"tokens": tokens, key: stub.astype(np.float32)}
+
+
+def check_seq(cfg, seq: int) -> None:
+    """A vision decoder's ``seq`` counts its patches and its text: at most
+    ``n_patches`` leaves no text."""
+    if cfg.frontend == "vision" and seq <= cfg.n_patches:
+        raise ValueError(f"{cfg.name}: --seq {seq} counts its {cfg.n_patches} patches and "
+                         f"the text, so it must exceed {cfg.n_patches}")
+
+
+def build_runtime(arch: str, reduced: bool, plan_kw: dict, remat: bool, device, seed: int,
+                  seq: int):
     from repro_torch import configs
     from repro_torch.launch import launch_device
     from repro_torch.models import ModelOpts, build
@@ -33,6 +73,7 @@ def build_runtime(arch: str, reduced: bool, plan_kw: dict, remat: bool, device, 
 
     dev = launch_device(device, reduced)
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    check_seq(cfg, seq)
     plan = ExecutionPlan(**plan_kw)
     plan.validate()
     opts = ModelOpts(remat="full" if (plan.gc or remat) else "none", loss_chunk=0)
@@ -53,7 +94,7 @@ def train(arch: str = "gemma-2b", reduced: bool = True, steps: int = 50,
     from repro_torch.train.optimizer import OptConfig, opt_init
     from repro_torch.train.step import make_train_step
 
-    cfg, model, plan = build_runtime(arch, reduced, plan_kw or {}, remat, device, seed)
+    cfg, model, plan = build_runtime(arch, reduced, plan_kw or {}, remat, device, seed, seq)
     optcfg = OptConfig(lr=lr)
     params = model.init()
     opt_state = opt_init(params, optcfg)
@@ -71,9 +112,11 @@ def train(arch: str = "gemma-2b", reduced: bool = True, steps: int = 50,
     losses, step_seconds = [], []
     t0 = time.time()
     for step in range(start, steps):
-        tokens = torch.from_numpy(data.batch(step)).long().to(model.device)
+        batch_np = train_batch(cfg, data.batch(step), step)
+        batch_t = {k: torch.from_numpy(a).to(model.device) for k, a in batch_np.items()}
+        batch_t["tokens"] = batch_t["tokens"].long()
         t_step = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, {"tokens": tokens})
+        params, opt_state, metrics = step_fn(params, opt_state, batch_t)
         loss = float(metrics["loss"])
         step_seconds.append(time.perf_counter() - t_step)
         losses.append(loss)

@@ -7,23 +7,24 @@ shared attention, RWKV-6, the encoder-decoder):
 
     init() -> params (an nn.Module, weights drawn on ``device`` from ``seed``)
     load(state) -> params (weights from ``repro_torch.convert``)
-    loss(params, batch {"tokens": (B,S)}) -> (scalar, metrics)   [train step]
+    loss(params, batch {"tokens": (B,S)[, stub]}) -> (scalar, metrics)   [train step]
     init_cache(batch, max_len) -> cache
     prefill(params, cache, batch) -> (cache, logits (B,V))
     decode_step(params, cache, tokens (B,)) -> (cache, logits (B,V))
 
-``prefill`` takes the reference's batch dict, {"tokens": (B,S)} plus the
-modality stub of ``input_specs``: "frames" (B, n_frames, D) for the
+``loss`` and ``prefill`` take the reference's batch dict, {"tokens": (B,S)}
+plus the modality stub of ``input_specs``: "frames" (B, n_frames, D) for the
 encoder-decoder (seamless-m4t-large-v2), "patches" (B, n_patches, D) for the
 vision decoder (phi-3-vision-4.2b, whose prompt may also be text alone, as
-in the reference); a bare token tensor means {"tokens": tokens}.
+in the reference); ``prefill`` also takes a bare token tensor, meaning
+{"tokens": tokens}.
 
-``loss`` is ported for the dense and MoE / MLA decoders (moonshot-v1-16b-a3b,
-deepseek-v3-671b: with the MoE load-balancing and MTP losses), the hybrid
-and RWKV-6; its backward runs the flash attention (at d 192 / dv 128 under
-MLA), SSD-scan and WKV6 backward kernels on the card.  The encoder-decoder's
-and the vision decoder's losses are ROADMAP A18b: ``loss`` raises for them
-before any forward.
+Every family trains: ``loss`` is ported for the dense, MoE / MLA
+(moonshot-v1-16b-a3b, deepseek-v3-671b: with the MoE load-balancing and MTP
+losses) and vision decoders, the hybrid, RWKV-6 and the encoder-decoder;
+its backward runs the flash attention (at d 192 / dv 128 under MLA, d 96
+for phi-3-vision, non-causal for the encoder and the cross-attention),
+SSD-scan and WKV6 backward kernels on the card.
 
 ``device`` defaults to ``cuda``; with no card the build raises unless the
 caller asks for ``device="cpu"``.
@@ -137,11 +138,20 @@ class Model:
         return params.eval()
 
     def loss(self, params, batch: dict):
-        """(scalar loss, metrics) of a batch {"tokens": (B, S)}; differentiable.
-        Called through the module (its ``forward``), so hooks on it run.
-        The encoder-decoder's and the vision decoder's modules raise before
-        any forward: their losses are ROADMAP A18b."""
+        """(scalar loss, metrics) of a batch {"tokens": (B, S)} and the
+        config's modality stub ("frames" required, "patches" optional);
+        differentiable.  Called through the module (its ``forward``), so
+        hooks on it run.  A key the config does not take raises before any
+        forward."""
+        self._check_keys(batch)
         return params(batch, self.opts)
+
+    def _check_keys(self, batch: dict) -> None:
+        key = stub_key(self.cfg)
+        extra = sorted(set(batch) - {"tokens", key})
+        if extra or "tokens" not in batch or (key == "frames" and key not in batch):
+            raise ValueError(f"{self.cfg.name}: batch keys {sorted(batch)}; it takes "
+                             f"'tokens'" + (f" and '{key}'" if key else ""))
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         """Allocation-free stand-ins (tensors on the ``meta`` device) for every
@@ -192,11 +202,7 @@ class Model:
         take raises, and so does an encoder-decoder batch without frames."""
         if isinstance(batch, torch.Tensor):
             batch = {"tokens": batch}
-        key = stub_key(self.cfg)
-        extra = sorted(set(batch) - {"tokens", key})
-        if extra or (key == "frames" and key not in batch):
-            raise ValueError(f"{self.cfg.name}: batch keys {sorted(batch)}; it takes "
-                             f"'tokens'" + (f" and '{key}'" if key else ""))
+        self._check_keys(batch)
         return self.family.prefill(params, cache, batch, self.cfg, self.opts)
 
     @torch.no_grad()

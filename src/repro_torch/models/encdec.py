@@ -1,5 +1,5 @@
 """Encoder-decoder transformer (the SeamlessM4T backbone): the torch twin of
-``repro.models.encdec``, for serving.
+``repro.models.encdec``, for training (forward + loss) and serving.
 
 The speech frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings (B, n_frames, D), projects them by
@@ -22,19 +22,29 @@ fewer frames than ``n_frames`` its decode attends to zero slots its prefill
 never saw (ROADMAP Quirks); the port serves exactly ``n_frames`` frames,
 where the two agree, and raises on any other count.
 
-Training (the loss and the flash backward on this path) is ROADMAP A18b:
-``EncDec.forward`` raises.
+Training runs through the modules, as the decoder's does
+(``models.transformer``): ``EncDec.forward`` is the loss
+(:func:`encdec_loss`), each ``EncBlock.forward`` / ``DecBlock.forward`` a
+layer, so that hooks on them (FSDP2's, under ZeRO-3) run.  The encoder runs
+once; every decoder block takes its output and forms its own cross K/V from
+it, so the encoder output's gradient is the sum of the decoder layers'.
+Under ``remat="full"`` each block is recomputed in the backward
+(``torch.utils.checkpoint``), the port's form of the reference's
+``jax.checkpoint`` around each scanned body; a decoder block's recompute
+forms its cross K/V again from the saved encoder output.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.transformer import FFN, Attention, attn_decode, qkv, ring_write
+from repro_torch.models.transformer import (FFN, Attention, ModelOpts, attn_decode, qkv,
+                                            ring_write)
 
 
 class EncBlock(tnn.Module):
@@ -53,6 +63,13 @@ class EncBlock(tnn.Module):
         self.attn.reset_parameters(gen)
         self.mlp.reset_parameters(gen)
 
+    def forward(self, x, cfg: ModelConfig, positions, opts: ModelOpts):
+        """The block over a full sequence of frames; recomputed in the
+        backward under ``remat="full"``."""
+        if opts.remat == "full":
+            return checkpoint(enc_block_apply, self, x, cfg, positions, use_reentrant=False)
+        return enc_block_apply(self, x, cfg, positions)
+
 
 class DecBlock(EncBlock):
     """Decoder block: causal self-attention, cross-attention (``lnx``,
@@ -67,6 +84,14 @@ class DecBlock(EncBlock):
         super().reset_parameters(gen)
         self.lnx.zero_()
         self.xattn.reset_parameters(gen)
+
+    def forward(self, x, enc_out, cfg: ModelConfig, positions, opts: ModelOpts):
+        """The block over a full sequence of tokens against the encoder
+        output; recomputed in the backward under ``remat="full"``."""
+        if opts.remat == "full":
+            return checkpoint(dec_block_apply, self, x, enc_out, cfg, positions,
+                              use_reentrant=False)
+        return dec_block_apply(self, x, enc_out, cfg, positions)
 
 
 class EncDec(tnn.Module):
@@ -90,9 +115,9 @@ class EncDec(tnn.Module):
         self.ln_f = nn.param(D, **kw)
         self.head = nn.param(D, cfg.vocab_size, **kw)
 
-    def forward(self, batch: dict, opts=None):
-        raise NotImplementedError(f"{self.cfg.name}: the encoder-decoder's loss is not "
-                                  f"ported yet (ROADMAP A18b)")
+    def forward(self, batch: dict, opts: ModelOpts):
+        """(loss, metrics) of a batch {"tokens", "frames"}: :func:`encdec_loss`."""
+        return encdec_loss(self, batch, self.cfg, opts)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -106,19 +131,72 @@ class EncDec(tnn.Module):
         nn.dense_init_(self.head, gen)
 
 
-def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """frames: (B, F, D) precomputed embeddings -> (B, F, D), every block's
-    self-attention bidirectional."""
-    x = frames.to(params.frame_proj.dtype) @ params.frame_proj
+def enc_block_apply(lp: EncBlock, x, cfg: ModelConfig, positions):
+    """Encoder block: bidirectional self-attention (RoPE on the frame
+    positions), then the FFN."""
     B, F, _ = x.shape
+    q, k, v = qkv(lp.attn, nn.rmsnorm(x, lp.ln1, cfg.norm_eps), cfg, positions)
+    o = attention(q, k, v, causal=False, window=cfg.sliding_window)
+    x = x + o.reshape(B, F, -1) @ lp.attn.wo
+    return x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, nn.rmsnorm(x, lp.ln2, cfg.norm_eps), cfg.act)
+
+
+def dec_block_apply(lp: DecBlock, x, enc_out, cfg: ModelConfig, positions):
+    """Decoder block over a full sequence (the reference's
+    ``_decoder_block``): causal self-attention, cross-attention to the
+    encoder output (non-causal, queries at the tokens' length against keys
+    at the frames'), then the FFN."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = qkv(lp.attn, nn.rmsnorm(x, lp.ln1, cfg.norm_eps), cfg, positions)
+    x = x + attention(q, k, v, causal=True).reshape(B, S, -1) @ lp.attn.wo
+    kx, vx = cross_kv(lp.xattn, enc_out, cfg)
+    qx = (nn.rmsnorm(x, lp.lnx, cfg.norm_eps) @ lp.xattn.wq).view(B, S, -1, hd)
+    x = x + attention(qx, kx, vx, causal=False).reshape(B, S, -1) @ lp.xattn.wo
+    return x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, nn.rmsnorm(x, lp.ln2, cfg.norm_eps), cfg.act)
+
+
+def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig,
+           opts: ModelOpts | None = None) -> torch.Tensor:
+    """frames: (B, F, D) precomputed embeddings -> (B, F, D), every block's
+    self-attention bidirectional; each block is called as a module, under
+    ``opts.remat``."""
+    opts = opts or ModelOpts()
+    x = frames.to(params.frame_proj.dtype) @ params.frame_proj
+    F = x.shape[1]
     x = x + params.enc_pos[:F]
     positions = torch.arange(F, device=x.device)[None, :]
     for lp in params.enc_layers:
-        q, k, v = qkv(lp.attn, nn.rmsnorm(x, lp.ln1, cfg.norm_eps), cfg, positions)
-        o = attention(q, k, v, causal=False, window=cfg.sliding_window)
-        x = x + o.reshape(B, F, -1) @ lp.attn.wo
-        x = x + nn.ffn_apply(lp.mlp.wi, lp.mlp.wo, nn.rmsnorm(x, lp.ln2, cfg.norm_eps), cfg.act)
+        x = lp(x, cfg, positions, opts)
     return nn.rmsnorm(x, params.enc_ln_f, cfg.norm_eps)
+
+
+def encdec_forward(params: EncDec, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Hidden states (B, S, D) of ``batch["tokens"]`` after the final norm:
+    the encoder once over ``batch["frames"]``, then the decoder blocks, each
+    reading the encoder output."""
+    if opts.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={opts.remat!r}: the port takes 'none' or 'full'")
+    enc_out = encode(params, batch["frames"], cfg, opts)
+    x = nn.embed_lookup(params.emb, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for lp in params.dec_layers:
+        x = lp(x, enc_out, cfg, positions, opts)
+    return nn.rmsnorm(x, params.ln_f, cfg.norm_eps)
+
+
+def encdec_loss(params: EncDec, batch: dict, cfg: ModelConfig, opts: ModelOpts):
+    """Next-token CE over the decoder: labels are the tokens rolled left by
+    one, the last position masked, the CE chunked by ``opts.loss_chunk``.
+    Returns (loss, {"ce"})."""
+    tokens = batch["tokens"]
+    h = encdec_forward(params, batch, cfg, opts)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    loss = nn.cross_entropy_loss(lambda hh: hh @ params.head, h, labels, mask,
+                                 chunk=opts.loss_chunk)
+    return loss, {"ce": loss}
 
 
 def cross_kv(xattn: Attention, enc_out: torch.Tensor, cfg: ModelConfig):

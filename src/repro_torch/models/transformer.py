@@ -15,8 +15,8 @@ is, as in the reference, unused when serving.  A MoE model's loss adds the
 Switch load-balancing loss of its MoE layers.  A vision model
 (``cfg.frontend == "vision"``, phi-3-vision-4.2b) has ``patch_proj``: its
 prompt is the projected patch embeddings (the frontend is a stub, as in the
-reference) followed by the token embeddings (:func:`embed_inputs`); its
-loss is ROADMAP A18b.
+reference) followed by the token embeddings (:func:`embed_inputs`), in
+training as in serving; its loss is taken over the text positions only.
 
 The KV cache is ``{"pos": int, <group>: {"k": (L,B,S,Hkv,hd), "v": ...}}``
 for each layer group (under MLA ``{"c": (L,B,S,kv_lora_rank), "pe":
@@ -281,31 +281,30 @@ def block_apply(lp: Block, x, cfg: ModelConfig, positions, opts: ModelOpts | Non
 
 
 def decoder_forward(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts):
-    """(hidden states (B, S, D) after the final norm, aux): the layer groups
-    of :func:`layer_groups` in order, aux the sum of their MoE layers'
-    load-balancing losses (0.0 without MoE layers).  Under ``remat="full"``
-    each block is recomputed in the backward (the port's form of the
-    reference's ``jax.checkpoint`` around the scanned block), so the
-    attention forward runs twice per layer."""
+    """(hidden states (B, S_total, D) after the final norm, aux, text
+    offset): the layer groups of :func:`layer_groups` in order over
+    :func:`embed_inputs` (a vision model's patches first), aux the sum of
+    their MoE layers' load-balancing losses (0.0 without MoE layers).  Under
+    ``remat="full"`` each block is recomputed in the backward (the port's
+    form of the reference's ``jax.checkpoint`` around the scanned block), so
+    the attention forward runs twice per layer."""
     if opts.remat not in ("none", "full"):
         raise NotImplementedError(f"remat={opts.remat!r}: the port takes 'none' or 'full'")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend's loss is not "
-                                  f"ported yet (ROADMAP A18b)")
     tp = params.tp
-    x = nn.embed_lookup(params.emb, batch["tokens"], tp)
+    x, off = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = 0.0
     for name, _ in layer_groups(cfg):
         for lp in getattr(params, name):
             x, a = lp(x, cfg, positions, opts, tp)
             aux = aux + a
-    return nn.rmsnorm(x, params.ln_f, cfg.norm_eps), aux
+    return nn.rmsnorm(x, params.ln_f, cfg.norm_eps), aux, off
 
 
 def decoder_loss(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts):
-    """Next-token CE: labels are the tokens rolled left by one, the last
-    position masked; a MoE model adds ``aux_loss_weight`` x its
+    """Next-token CE over the text positions (a vision model's patches are
+    sliced off the hidden states first): labels are the tokens rolled left
+    by one, the last position masked; a MoE model adds ``aux_loss_weight`` x its
     load-balancing loss, and with ``cfg.mtp_depth`` and ``opts.mtp`` the MTP
     block predicts the token after next (labels rolled by two, the last two
     masked) from the final hidden state and the next token's embedding,
@@ -313,7 +312,9 @@ def decoder_loss(params: Decoder, batch: dict, cfg: ModelConfig, opts: ModelOpts
     the reference applies it outside its checkpointed scan.  Returns (loss,
     {"ce"[, "aux"][, "mtp"]})."""
     tokens = batch["tokens"]
-    h, aux = decoder_forward(params, batch, cfg, opts)
+    h, aux, off = decoder_forward(params, batch, cfg, opts)
+    if off:
+        h = h[:, off:]
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
@@ -396,8 +397,9 @@ def embed_inputs(params: Decoder, batch: dict, cfg: ModelConfig):
     """Token (+ modality stub) embedding: (x (B, S_total, D), text offset).
     A vision model's ``batch["patches"]`` (B, n_patches, D) is projected by
     ``patch_proj`` and put before the token embeddings; the offset is the
-    number of patches (0 without them)."""
-    x = nn.embed_lookup(params.emb, batch["tokens"])
+    number of patches (0 without them).  The token embedding is
+    vocab-parallel under ``params.tp``."""
+    x = nn.embed_lookup(params.emb, batch["tokens"], params.tp)
     if cfg.frontend == "vision" and "patches" in batch:
         pe = batch["patches"].to(x.dtype) @ params.patch_proj
         return torch.cat([pe, x], dim=1), pe.shape[1]

@@ -1,9 +1,10 @@
 """Train step: the torch twin of ``repro.train.step.make_train_step``.
 
 The plan's ``ga_steps`` splits the batch into equal microbatches along its
-first axis.  Each microbatch runs its own backward, with gradients in the
-parameters' dtype (as JAX takes them), and adds them to an f32 accumulator
-before the next one; the sum is divided by ``ga_steps`` and the reported
+first axis (every leaf: the tokens and a modality stub alike).  Each
+microbatch runs its own backward, with gradients in the parameters' dtype
+(as JAX takes them), and adds them to an f32 accumulator before the next
+one; the sum is divided by ``ga_steps`` and the reported
 loss is the mean of the microbatch losses.  ``gc`` acts through the model's
 ``ModelOpts(remat="full")``, which the launcher sets from the plan.
 ``make_train_step`` runs on one device and acts on ``ga_steps`` alone, as
@@ -27,8 +28,8 @@ that runs on every rank of the mesh:
     ``pinned_host``), streamed through the device for the update;
   * GA and GC as in ``make_train_step``.
 
-``pp > 1`` (GPipe), ``sp`` and TP outside the dense family raise
-``NotImplementedError`` naming ROADMAP A14b; so does a TP degree that would
+``pp > 1`` (GPipe), ``sp`` and TP outside the dense family (the vision
+decoder included) raise ``NotImplementedError`` naming ROADMAP A14b; so does a TP degree that would
 split a head, and any plan of the MoE family (whose layout across a mesh,
 expert sharding among it, has not been held to the reference's): it trains
 through ``make_train_step`` on one device.
@@ -110,6 +111,10 @@ def check_plan(cfg: ModelConfig, plan: ExecutionPlan) -> None:
     if family_of(cfg) is not DECODER:
         raise NotImplementedError(f"{cfg.name}: tensor parallelism of the {cfg.family} family "
                                   f"is not ported yet (ROADMAP A14b)")
+    if cfg.frontend == "vision":
+        raise NotImplementedError(f"{cfg.name}: tensor parallelism of the vision decoder (its "
+                                  f"patch projection beside the vocab-parallel embedding) is "
+                                  f"not ported yet (ROADMAP A14b)")
     hd = cfg.resolved_head_dim
     for leaf, heads in (("attn.wq", cfg.n_heads), ("attn.wk", cfg.n_kv_heads),
                         ("attn.wv", cfg.n_kv_heads)):

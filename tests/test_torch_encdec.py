@@ -8,9 +8,12 @@ K/V caches and 4 decode steps must match (f32 at 1e-4 relative, bf16 at
 3e-2, the TOL of tests/test_torch_serve.py), greedy tokens must be equal in
 f32, and the port's decode must match its own prefill (rel < 0.08, the
 bound of tests/test_models_smoke.py).  Conversion is bit-exact both ways.
-The refusals: the loss (ROADMAP A18b), a frame count other than
-``n_frames`` (the reference's cross decode would read unwritten cache
-slots: ROADMAP Quirks) and a batch without frames.
+``Model.loss`` and every gradient match ``jax.value_and_grad`` of the
+reference's ``encdec_loss`` (tests/test_torch_train.py's TOL_LOSS and
+TOL_GRAD) in f32 and bf16, with and without ``remat="full"``, and with a
+chunked CE.  The refusals: a frame count other than ``n_frames`` when
+serving (the reference's cross decode would read unwritten cache slots:
+ROADMAP Quirks) and a batch without frames.
 """
 
 import jax
@@ -193,14 +196,43 @@ def test_input_specs_and_dummy_batch_match_reference(pair):
     assert int(batch["tokens"].max()) < cfg.vocab_size
 
 
-def test_loss_raises_naming_a18b(pair):
+LOSS_OPTS = {"plain": {}, "remat": {"remat": "full"}}
+
+
+@pytest.mark.parametrize("opts", list(LOSS_OPTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_and_grads_match_jax(dtype, opts, pair):
+    """Model.loss (ce) and every gradient against jax.value_and_grad of the
+    reference's encdec_loss, on the frames the launcher draws, with and
+    without remat="full" (each encoder and decoder block recomputed)."""
+    from repro_torch.launch.train import train_batch
+    from test_torch_train import check_loss_against_jax
+
+    _, _, jp, tm, _ = pair(dtype)
+    toks = np.random.default_rng(5).integers(0, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
+    calls = flash_attention_plain.calls
+    check_loss_against_jax(ARCH, dtype, jp, train_batch(tm.cfg, toks, 1), LOSS_OPTS[opts])
+    # the encoder, each decoder layer's self and cross: once each, twice under remat
+    layers = tm.cfg.enc_layers + 2 * tm.cfg.n_layers
+    assert flash_attention_plain.calls == calls + layers * (1 + (opts == "remat"))
+
+
+def test_chunked_loss_matches_jax(pair):
+    """The CE in sequence chunks (loss_chunk 4 of 12 tokens), f32."""
+    from repro_torch.launch.train import train_batch
+    from test_torch_train import check_loss_against_jax
+
+    _, _, jp, tm, _ = pair("float32")
+    toks = np.random.default_rng(6).integers(0, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
+    check_loss_against_jax(ARCH, "float32", jp, train_batch(tm.cfg, toks, 2), {"loss_chunk": 4})
+
+
+def test_loss_refuses_a_batch_without_frames(pair):
     _, _, _, tm, tp = pair("float32")
     _, tb = _batches(tm.cfg, 2, 8)
     calls = flash_attention_plain.calls
-    with pytest.raises(NotImplementedError, match="ROADMAP A18b"):
-        tm.loss(tp, tb)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18b"):
-        tp(tb, tm.opts)
+    with pytest.raises(ValueError, match="it takes 'tokens' and 'frames'"):
+        tm.loss(tp, {"tokens": tb["tokens"]})
     assert flash_attention_plain.calls == calls
 
 

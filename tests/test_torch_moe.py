@@ -431,10 +431,10 @@ def test_kernel_refuses_other_head_dim_pairs(d, dv):
         _check(q, k, v)
 
 
-@pytest.mark.parametrize("d,dv", [(192, 64), (128, 64), (96, 96), (192, 192), (128, 192)])
+@pytest.mark.parametrize("d,dv", [(192, 64), (128, 64), (80, 80), (192, 192), (128, 192)])
 def test_backward_refuses_other_head_dim_pairs(d, dv):
-    """The backward takes the forward's pairs, (192, 128) among them; any
-    other raises before launch."""
+    """The backward takes the forward's pairs, (192, 128) and (96, 96)
+    among them; any other raises before launch."""
     from repro_torch.kernels.flash_attention import _check_bwd
 
     q, k = torch.zeros(1, 8, 2, d), torch.zeros(1, 8, 2, d)
@@ -445,6 +445,8 @@ def test_backward_refuses_other_head_dim_pairs(d, dv):
         _check_bwd(q, k, v, o, lse, o)
     qk, vo = torch.zeros(1, 8, 2, 192), torch.zeros(1, 8, 2, 128)
     _check_bwd(qk, qk, vo, vo, lse, vo)                 # MLA's pair passes
+    qkv = torch.zeros(1, 8, 2, 96)
+    _check_bwd(qkv, qkv, qkv, qkv, lse, qkv)            # and phi-3-vision's
 
 
 @pytest.mark.parametrize("arch,extra", [("moonshot-v1-16b-a3b", []),

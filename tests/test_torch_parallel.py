@@ -20,11 +20,14 @@
   lies 2.03e-4 from JAX after 3 single-device port steps; llama's leaves
   under 1e-5), which no plan causes.  Plans: dp=4;
   dp=2 tp=2 ZeRO-1; dp=4 ZeRO-3; tp=4; dp=2 ZeRO-1 + offload + GA 2 (the
-  JAX step with GA 2); and ZeRO-3 for zamba2 and rwkv6.
+  JAX step with GA 2); ZeRO-3 for zamba2 and rwkv6; and on 2 ranks, with
+  the modality stub the launcher draws split with the tokens,
+  seamless-m4t-large-v2 under ZeRO-3 and phi-3-vision-4.2b under ZeRO-1.
 * Reconfiguration: 2 steps under dp=2 tp=2 ZeRO-1, a checkpoint, a restore
   under dp=4 ZeRO-3 and 2 more steps equal 4 single-device JAX steps, and
   the port's sharded checkpoint restores in the JAX package.
-* Refusals: pp > 1, sp, TP of the hybrid and RWKV-6, TP that would split a
+* Refusals: pp > 1, sp, TP of the hybrid, RWKV-6, the encoder-decoder and
+  the vision decoder, TP that would split a
   head (gpt2-1.5b's full config at tp=2, no weights built), a world too
   small for the mesh, a process group of the wrong backend, a failed pin.
 * ``gpu``: offload on the card keeps pinned host moments and matches the
@@ -54,6 +57,7 @@ from repro.train.step import make_train_step as jmake_train_step
 from repro_torch import configs
 from repro_torch.convert import params_from_jax_numpy, read_checkpoint
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+from repro_torch.launch.train import train_batch
 from repro_torch.models import build, nn
 from repro_torch.models.api import family_of
 from repro_torch.parallel import sharding as sh
@@ -203,6 +207,7 @@ dist.init_process_group("gloo", init_method="file://" + args["store"], rank=rank
 from repro_torch import configs
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import train_batch
 from repro_torch.models import ModelOpts, build
 from repro_torch.parallel.plan import ExecutionPlan
 from repro_torch.train.checkpoint import CheckpointManager
@@ -213,7 +218,10 @@ cfg = configs.get_reduced(args["arch"]).with_(dtype="float32")
 plan = ExecutionPlan(**args["plan"])
 model = build(cfg, device="cpu", opts=ModelOpts(loss_chunk=0))
 mesh = make_mesh(plan.dp, plan.tp, device="cpu")
-specs = {"tokens": torch.empty((args["batch"], args["seq"]), dtype=torch.long, device="meta")}
+data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=args["seq"],
+                                  global_batch=args["batch"], seed=0))
+specs = {k: torch.empty(a.shape, device="meta")
+         for k, a in train_batch(cfg, data.batch(0), 0).items()}
 step, p_sh, o_sh, b_sh, params, opt = compile_train_step(model, plan, mesh,
                                                          OptConfig(lr=args["lr"]), specs)
 mgr = CheckpointManager(args["ckpt"], async_save=False)
@@ -221,13 +229,14 @@ params, opt, meta = mgr.restore(params, opt, step=args["from"], layout=step.layo
 if plan.offload:
     assert {s.memory_kind for s in o_sh["m"].values()} == {"pinned_host"}
     assert all(t.device.type == "cpu" for k in ("m", "v") for t in opt[k].values())
-data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=args["seq"],
-                                  global_batch=args["batch"], seed=0))
 index, count = step.layout.batch_shard(b_sh["tokens"].spec)
 out = {}
 for i in range(meta["step"], meta["step"] + args["steps"]):
-    tokens = torch.from_numpy(data.shard(i, index, count)).long()
-    params, opt, m = step(params, opt, {"tokens": tokens})
+    rows = train_batch(cfg, data.batch(i), i)
+    per = args["batch"] // count
+    batch = {k: torch.from_numpy(a[index * per:(index + 1) * per]) for k, a in rows.items()}
+    batch["tokens"] = batch["tokens"].long()
+    params, opt, m = step(params, opt, batch)
     out[f"loss/{i}"] = m["loss"].item()
     out[f"grad_norm/{i}"] = m["grad_norm"].item()
 end = meta["step"] + args["steps"]
@@ -291,12 +300,15 @@ class JaxRun:
                                           global_batch=BATCH, seed=0))
         self.loss, self.grad_norm, self.params, self.port_params = [], [], [], []
         for i in range(steps):
-            params, opt, m = step(params, opt, {"tokens": jnp.asarray(data.batch(i))})
+            batch = train_batch(self.cfg, data.batch(i), i)
+            params, opt, m = step(params, opt, {k: jnp.asarray(a) for k, a in batch.items()})
             self.loss.append(float(m["loss"]))
             self.grad_norm.append(float(m["grad_norm"]))
             self.params.append(params_from_jax_numpy(jax.tree.map(np.asarray, params),
                                                      self.cfg))
-            pp, popt, _ = pstep(pp, popt, {"tokens": torch.from_numpy(data.batch(i)).long()})
+            tbatch = {k: torch.from_numpy(a) for k, a in batch.items()}
+            tbatch["tokens"] = tbatch["tokens"].long()
+            pp, popt, _ = pstep(pp, popt, tbatch)
             self.port_params.append({n: t.detach().clone() for n, t in pp.state_dict().items()})
 
 
@@ -337,6 +349,10 @@ WORLDS = {
     "dp2z1off_ga2": ("llama2-7b", {"dp": 2, "zero_stage": 1, "offload": True, "ga_steps": 2}),
     "zamba2_dp4z3": ("zamba2-7b", {"dp": 4, "zero_stage": 3}),
     "rwkv6_dp4z3": ("rwkv6-1.6b", {"dp": 4, "zero_stage": 3}),
+    # the modality stubs split with the tokens: frames under ZeRO-3 (each
+    # encoder and decoder block its own FSDP2 unit), patches under ZeRO-1
+    "seamless_dp2z3": ("seamless-m4t-large-v2", {"dp": 2, "zero_stage": 3}),
+    "phi3v_dp2z1": ("phi-3-vision-4.2b", {"dp": 2, "zero_stage": 1}),
 }
 
 
@@ -384,6 +400,10 @@ REFUSED = {
     "sp": ("llama2-7b", {"sp": True}, "sequence parallelism.*ROADMAP A14b"),
     "tp hybrid": ("zamba2-7b", {"tp": 2}, "tensor parallelism of the hybrid.*ROADMAP A14b"),
     "tp rwkv6": ("rwkv6-1.6b", {"tp": 2}, "tensor parallelism of the ssm.*ROADMAP A14b"),
+    "tp vision": ("phi-3-vision-4.2b", {"tp": 2},
+                  "tensor parallelism of the vision decoder.*ROADMAP A14b"),
+    "tp encdec": ("seamless-m4t-large-v2", {"dp": 2, "tp": 2},
+                  "tensor parallelism of the audio.*ROADMAP A14b"),
 }
 
 

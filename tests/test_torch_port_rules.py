@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_repro():
         "          'analysis.tables', 'core.baselines', 'core.simulator', 'models.moe',\n"
         "          'models.mla', 'configs.moonshot_v1_16b_a3b', 'configs.deepseek_v3_671b',\n"
         "          'models.encdec', 'configs.seamless_m4t_large_v2',\n"
-        "          'configs.phi_3_vision_4_2b'):\n"
+        "          'configs.phi_3_vision_4_2b', 'analysis.lint', 'analysis.rules',\n"
+        "          'analysis.rules.rollback'):\n"
         "    assert f'repro_torch.{m}' in mods, (m, mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

@@ -4,7 +4,8 @@
   ``FlashAttention`` autograd path through it) against ``jax.vjp`` of
   ``repro.models.attention.attention`` (dense schedule) and of
   ``repro.models.flash.flash_attention_hlo``, at f32 atol = rtol = 2e-4,
-  the bound of tests/test_flash.py.
+  the bound of tests/test_flash.py; non-causal with Sq < Sk and Sq > Sk
+  (the cross-attention's) and at d 96 (phi-3-vision's) among the cases.
 * One optimizer update (AdamW, Lion; f32 and bf16 moments; clip active)
   against ``repro.train.optimizer.opt_update``: rel 1e-6 in f32, within one
   bf16 ulp in bf16.
@@ -35,10 +36,14 @@
   rounding, see tests/test_torch_moe.py), f32 on the port's own; each
   option (``mtp=False``, ``aux_loss_weight=0``, ``remat="full"``, a chunked
   CE, a ``moe_token_chunk`` that splits the tokens) in f32.
-* ``gpu``: the backward kernel against its plain version on the card, and a
-  3-step train of a cut llama on the card against the CPU; the same at
-  d 192 / dv 128, the cut MoE models trained on the card against the CPU
-  (under the CPU's picks) and a MoE train step repeated bit for bit.
+* ``check_loss_against_jax``: the same check for a batch with a modality
+  stub, which tests/test_torch_encdec.py and tests/test_torch_vlm.py run.
+* ``gpu``: the backward kernel against its plain version on the card (d 96
+  and non-causal at Sq ≠ Sk among the cases), and a 3-step train of a cut
+  llama, seamless-m4t and phi-3-vision on the card against the CPU; the
+  same at d 192 / dv 128, the cut MoE models trained on the card against
+  the CPU (under the CPU's picks) and a MoE train step repeated bit for
+  bit.
 """
 
 import contextlib
@@ -100,6 +105,9 @@ BWD_CASES = [
     ("GQA 8:2", 2, 64, 64, 8, 2, 32, True, 0, (16, 32)),
     ("ragged S=17", 1, 17, 17, 4, 2, 16, True, 0, (17, 17)),
     ("bidirectional", 1, 40, 40, 2, 2, 16, False, 0, (20, 40)),
+    ("non-causal Sq < Sk", 2, 24, 64, 4, 4, 32, False, 0, (8, 32)),
+    ("non-causal Sq > Sk", 2, 64, 24, 4, 4, 32, False, 0, (16, 24)),
+    ("d=96", 1, 40, 40, 2, 2, 96, True, 0, (20, 40)),
 ]
 
 
@@ -262,6 +270,37 @@ def _check_loss_and_grads(arch, dtype, jopts=None, topts=None, S=32):
 @pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_loss_and_grads_match_jax(arch, dtype):
     _check_loss_and_grads(arch, dtype)
+
+
+def check_loss_against_jax(arch, dtype, jp, batch: dict, opts_kw: dict | None = None):
+    """``Model.loss``, its metrics and every gradient of reduced ``arch`` on
+    the reference's weights ``jp`` against ``jax.value_and_grad`` of the
+    reference's loss, on the numpy ``batch`` (the tokens and the modality
+    stub), at TOL_LOSS and TOL_GRAD; ``opts_kw`` goes to both frameworks'
+    ModelOpts."""
+    kw = opts_kw or {}
+    cfg = configs.get_reduced(arch).with_(dtype=dtype)
+    jm = jbuild(jconfigs.get_reduced(arch).with_(dtype=dtype), JModelOpts(**kw))
+    tm = build(cfg, device="cpu", opts=ModelOpts(**kw))
+    tp = tm.load(params_from_jax_numpy(jax.tree.map(np.asarray, jp), cfg))
+    (jl, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(
+        jp, {k: jnp.asarray(a) for k, a in batch.items()})
+    tl, metrics = tm.loss(tp, {k: torch.from_numpy(a).long() if k == "tokens" else
+                               torch.from_numpy(a) for k, a in batch.items()})
+    tl.backward()
+    assert _rel(tl, jl) < TOL_LOSS[dtype]
+    assert sorted(metrics) == sorted(jmet)
+    for key, want in jmet.items():
+        assert _rel(metrics[key], want) < TOL_LOSS[dtype], key
+    want = params_from_jax_numpy(jax.tree.map(np.asarray, jg), cfg)
+    got = dict(tp.named_parameters())
+    assert sorted(want) == sorted(got)
+    for name, g in want.items():
+        if got[name].grad is None:      # a leaf the loss leaves out (patch_proj, text alone)
+            assert not np.any(_np(g)), name
+            continue
+        assert got[name].grad.dtype == got[name].dtype == g.dtype, name
+        assert _rel(got[name].grad, g) < TOL_GRAD[dtype], name
 
 
 @pytest.mark.parametrize("opts", [dict(remat="full"), dict(loss_chunk=8)],
@@ -490,6 +529,13 @@ GPU_BWD_CASES = [
     ("d=256 MQA", 2, 256, 256, 8, 1, 256, True, 0, "bfloat16"),
     ("d=256 f32", 1, 200, 200, 4, 2, 256, True, 0, "float32"),
     ("bidirectional", 2, 256, 256, 8, 8, 128, False, 0, "bfloat16"),
+    ("phi-3-vision train d=96", 4, 1088, 1088, 32, 32, 96, True, 0, "bfloat16"),
+    ("d=96 f32", 2, 300, 300, 8, 8, 96, True, 0, "float32"),
+    ("seamless encoder", 4, 1024, 1024, 16, 16, 64, False, 0, "bfloat16"),
+    ("seamless cross Sq 512 < Sk 1024", 4, 512, 1024, 16, 16, 64, False, 0, "bfloat16"),
+    ("non-causal ragged Sq 100 < Sk 128", 2, 100, 128, 4, 4, 64, False, 0, "bfloat16"),
+    ("non-causal Sq 300 > Sk 128", 2, 300, 128, 4, 4, 64, False, 0, "bfloat16"),
+    ("non-causal Sq 100 < Sk 128 f32", 2, 100, 128, 4, 4, 64, False, 0, "float32"),
 ]
 TOL_BWD = {"float32": 2e-4, "bfloat16": 3e-2}
 
@@ -507,9 +553,11 @@ def test_backward_kernel_matches_plain(case, cuda_device):
     kw = dict(causal=causal, window=window)
     o, lse = flash_attention_plain(q, k, v, **kw)
     launches = flash_attention_bwd.launches
+    noncausal = flash_attention_bwd.noncausal_launches
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == launches + 1
+    assert flash_attention_bwd.noncausal_launches == noncausal + (not causal)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == TDT[dtype] and bool(torch.isfinite(g).all())
@@ -525,23 +573,38 @@ def test_train_on_card_matches_cpu(plan_kw, dtype, cuda_device):
     it) on the card and on the CPU from the same weights and batches, at
     TOL_LOSS and TOL_GRAD: f32 losses rel 1e-4 and step-1 gradients 2e-4;
     bf16, which runs the backward's tensor-core kernels, 3e-2 and 5e-2."""
+    cfg = configs.get("llama2-7b").with_(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2,
+                                          d_ff=512, vocab_size=512, dtype=dtype)
+    _card_matches_cpu(cfg, plan_kw, dtype, cuda_device)
+
+
+def _card_matches_cpu(cfg, plan_kw, dtype, device, n_text=100):
+    """Step-1 gradients and 3 AdamW steps of ``cfg`` on the card and on the
+    CPU from the same weights and batches (``n_text`` tokens, and the
+    modality stub the launcher draws), at TOL_LOSS and TOL_GRAD."""
     from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.train import train_batch
     from repro_torch.parallel.plan import ExecutionPlan
     from repro_torch.train.step import make_train_step
 
-    cfg = configs.get("llama2-7b").with_(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2,
-                                          d_ff=512, vocab_size=512, dtype=dtype)
     plan = ExecutionPlan(**plan_kw)
     opts = ModelOpts(remat="full" if plan.gc else "none", loss_chunk=0)
     optcfg = topt.OptConfig(lr=1e-3)
-    data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=100, global_batch=2))
+    seq = n_text + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=2))
+
+    def batch(i, dev):
+        return {k: torch.from_numpy(a).to(dev).long() if k == "tokens" else
+                torch.from_numpy(a).to(dev)
+                for k, a in train_batch(cfg, data.batch(i), i).items()}
+
     cpu = build(cfg, device="cpu", opts=opts)
-    gpu = build(cfg, device=cuda_device, opts=opts)
+    gpu = build(cfg, device=device, opts=opts)
     pc = cpu.init()
-    pg = gpu.load({k: v.to(cuda_device) for k, v in pc.state_dict().items()})
+    pg = gpu.load({k: v.to(device) for k, v in pc.state_dict().items()})
     grads = []
     for m, p in ((cpu, pc), (gpu, pg)):
-        loss, _ = m.loss(p, {"tokens": torch.from_numpy(data.batch(0)).long().to(m.device)})
+        loss, _ = m.loss(p, batch(0, m.device))
         loss.backward()
         grads.append({n: t.grad.detach().cpu() for n, t in p.named_parameters()})
         p.zero_grad(set_to_none=True)
@@ -551,10 +614,33 @@ def test_train_on_card_matches_cpu(plan_kw, dtype, cuda_device):
     step_c = make_train_step(cpu, plan, optcfg)
     step_g = make_train_step(gpu, plan, optcfg)
     for i in range(3):
-        toks = torch.from_numpy(data.batch(i)).long()
-        pc, sc, mc = step_c(pc, sc, {"tokens": toks})
-        pg, sg, mg = step_g(pg, sg, {"tokens": toks.to(cuda_device)})
+        pc, sc, mc = step_c(pc, sc, batch(i, "cpu"))
+        pg, sg, mg = step_g(pg, sg, batch(i, device))
         assert _rel(mg["loss"], mc["loss"]) <= TOL_LOSS[dtype]
+
+
+# The cut encoder-decoder and vision models of chip_smoke.py's REFERENCE:
+# full per-head dims (64, non-causal in the encoder and the cross-attention;
+# 96), 2 layers (2 + 2), 128 frames or 16 patches.
+ENCDEC_VLM_CUT = {
+    "seamless-m4t-large-v2": dict(n_layers=2, enc_layers=2, d_model=256, n_heads=4,
+                                  n_kv_heads=4, d_ff=512, n_frames=128),
+    "phi-3-vision-4.2b": dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, head_dim=96,
+                              d_ff=512, n_patches=16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("plan_kw", [{}, {"ga_steps": 2}, {"gc": True}],
+                         ids=["plain", "ga2", "gc"])
+@pytest.mark.parametrize("arch", list(ENCDEC_VLM_CUT))
+def test_encdec_vlm_train_on_card_matches_cpu(arch, plan_kw, dtype, cuda_device):
+    """As test_train_on_card_matches_cpu for the cut seamless-m4t (the
+    non-causal backward at Sq 100 < Sk 128 in each cross-attention) and
+    phi-3-vision (the d 96 backward over 16 patches + 100 tokens)."""
+    cfg = configs.get(arch).with_(vocab_size=512, dtype=dtype, **ENCDEC_VLM_CUT[arch])
+    _card_matches_cpu(cfg, plan_kw, dtype, cuda_device)
 
 
 # The bwd_kernels cases of chip_smoke.py at d 192 / dv 128: (label, B, Sq, Sk,

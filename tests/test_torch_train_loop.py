@@ -11,6 +11,11 @@
   port and a port checkpoint restored by ``repro.train.checkpoint.
   CheckpointManager.restore`` hold exactly the same leaves, and each resumed
   run ends within rel 1e-3 of the uninterrupted one.
+* The encoder-decoder and the vision decoder (seamless-m4t-large-v2,
+  phi-3-vision-4.2b): the launcher draws the modality stub as the
+  reference's does (``launch.train.train_batch``), and checkpoints cross
+  both ways as above, each resumed run ending on the other framework's
+  loss; a vision ``--seq`` within the patches is refused.
 * The MoE family (moonshot-v1-16b-a3b, deepseek-v3-671b): the launcher's
   3-step f32 trajectory against the reference's at 1e-4 (deepseek also
   under GA 2 and GC); params and optimizer state (the dense and MoE layer
@@ -56,6 +61,49 @@ def test_trajectory_matches_jax_launcher(tmp_path, float32_configs):
     got = _cpu_train(steps=3, ckpt_dir=str(tmp_path / "jax"), **kw)["losses"]
     assert len(got) == len(want) == 3
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+STUB_ARCHS = ["seamless-m4t-large-v2", "phi-3-vision-4.2b"]
+
+
+@pytest.mark.parametrize("step", [0, 5])
+@pytest.mark.parametrize("arch", [*STUB_ARCHS, "llama2-7b"])
+def test_train_batch_draws_the_stub_as_the_reference(arch, step):
+    """The reference's launcher (src/repro/launch/train.py:67-79): for step
+    n, np.random.default_rng(n).normal(0, 0.02, (B, n, D)) as f32 frames or
+    patches, a vision decoder's tokens cut to seq - n_patches; no stub
+    otherwise."""
+    from repro_torch.launch.train import train_batch
+
+    cfg = configs.get_reduced(arch)
+    tokens = np.arange(4 * 32, dtype=np.int32).reshape(4, 32)
+    got = train_batch(cfg, tokens, step)
+    if arch == "llama2-7b":
+        assert list(got) == ["tokens"] and got["tokens"] is tokens
+        return
+    key, n = (("patches", cfg.n_patches) if cfg.frontend == "vision"
+              else ("frames", cfg.n_frames))
+    want = np.asarray(jnp.asarray(np.random.default_rng(step).normal(
+        0, 0.02, (4, n, cfg.d_model)), jnp.float32))
+    assert sorted(got) == sorted(["tokens", key])
+    assert got[key].dtype == np.float32 and np.array_equal(got[key], want)
+    cut = 32 - n if key == "patches" else 32
+    np.testing.assert_array_equal(got["tokens"], tokens[:, :cut])
+
+
+@pytest.mark.parametrize("seq", [4, 8])
+def test_launcher_refuses_seq_within_the_patches(seq, tmp_path, monkeypatch):
+    """--seq counts the 8 patches and the text: at most 8 leaves no text
+    (the reference slices its tokens with a negative end there: ROADMAP
+    Quirks), refused before anything is built or written."""
+    import repro_torch.models as models
+    from repro_torch.launch.train import main
+
+    monkeypatch.setattr(models, "build", lambda *a, **k: pytest.fail("built a model"))
+    with pytest.raises(ValueError, match=f"--seq {seq} counts its 8 patches"):
+        main(["--arch", "phi-3-vision-4.2b", "--device", "cpu", "--seq", str(seq),
+              "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 MOE_TRAJECTORIES = [("moonshot-v1-16b-a3b", {}), ("deepseek-v3-671b", {}),
@@ -220,6 +268,21 @@ SSM_LEAVES = {"zamba2-7b": ("params/ssm_layers/mixer/A_log", "params/ssm_layers/
 def test_jax_checkpoint_resumes_in_port_ssm(arch, tmp_path, float32_configs):
     """As test_jax_checkpoint_resumes_in_port, for the hybrid and RWKV-6."""
     _jax_checkpoint_resumes_in_port(arch, tmp_path)
+
+
+@pytest.mark.parametrize("arch", STUB_ARCHS)
+def test_jax_checkpoint_resumes_in_port_stub(arch, tmp_path, float32_configs):
+    """As test_jax_checkpoint_resumes_in_port, for the encoder-decoder and
+    the vision decoder: the resumed port run ends on the reference's loss."""
+    _jax_checkpoint_resumes_in_port(arch, tmp_path)
+
+
+@pytest.mark.parametrize("arch", STUB_ARCHS)
+def test_port_checkpoint_restores_in_jax_stub(arch, tmp_path, monkeypatch):
+    """As test_port_checkpoint_restores_in_jax, for the encoder-decoder and
+    the vision decoder, in bf16: the reference resumes the port's run and
+    ends on the port's loss."""
+    _port_checkpoint_restores_in_jax(arch, "bfloat16", tmp_path, monkeypatch)
 
 
 def _port_checkpoint_restores_in_jax(arch, dtype, tmp_path, monkeypatch):

@@ -9,9 +9,12 @@ text) and 4 decode steps must match (f32 at 1e-4 relative, bf16 at 3e-2,
 the TOL of tests/test_torch_serve.py), greedy tokens must be equal in f32,
 the port's decode must match its own prefill (rel < 0.08, the bound of
 tests/test_models_smoke.py), and ``patches + 1.0`` must change the logits
-(tests/test_models_smoke.py:103).  Conversion is bit-exact both ways.  The
-refusals: the loss (ROADMAP A18b) and a launcher prompt no longer than the
-patches.
+(tests/test_models_smoke.py:103).  Conversion is bit-exact both ways.
+``Model.loss`` and every gradient match ``jax.value_and_grad`` of the
+reference's ``decoder_loss`` with patches (tests/test_torch_train.py's
+TOL_LOSS and TOL_GRAD) in f32 and bf16, with and without
+``remat="full"``, with a chunked CE and on text alone.  The refusal: a
+launcher prompt no longer than the patches.
 """
 
 import jax
@@ -165,16 +168,46 @@ def test_input_specs_and_dummy_batch_match_reference(pair):
     assert 0.01 < float(batch["patches"].std()) < 0.03
 
 
-def test_loss_raises_naming_a18b(pair):
-    """The loss raises before any forward: it must not quietly drop the patches."""
-    _, _, _, tm, tp = pair("float32")
-    _, tb = _batches(tm.cfg, 2, 16)
+LOSS_OPTS = {"plain": {}, "remat": {"remat": "full"}}
+
+
+@pytest.mark.parametrize("opts", list(LOSS_OPTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_and_grads_match_jax(dtype, opts, pair):
+    """Model.loss (ce over the text positions) and every gradient, the
+    patch projection's among them, against jax.value_and_grad of the
+    reference's decoder_loss with patches (8 patches before 12 tokens, as
+    the launcher cuts a seq of 20), with and without remat="full"."""
+    from repro_torch.launch.train import train_batch
+    from test_torch_train import check_loss_against_jax
+
+    _, _, jp, tm, _ = pair(dtype)
+    toks = np.random.default_rng(5).integers(0, tm.cfg.vocab_size, (2, 20)).astype(np.int32)
+    batch = train_batch(tm.cfg, toks, 1)
+    assert batch["tokens"].shape == (2, 12) and batch["patches"].shape[1] == 8
     calls = flash_attention_plain.calls
-    with pytest.raises(NotImplementedError, match="ROADMAP A18b"):
-        tm.loss(tp, tb)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18b"):
-        tp(tb, tm.opts)
-    assert flash_attention_plain.calls == calls
+    check_loss_against_jax(ARCH, dtype, jp, batch, LOSS_OPTS[opts])
+    assert flash_attention_plain.calls == calls + tm.cfg.n_layers * (1 + (opts == "remat"))
+
+
+def test_chunked_loss_matches_jax(pair):
+    """The CE in sequence chunks (loss_chunk 4 of the 12 text positions), f32."""
+    from repro_torch.launch.train import train_batch
+    from test_torch_train import check_loss_against_jax
+
+    _, _, jp, tm, _ = pair("float32")
+    toks = np.random.default_rng(6).integers(0, tm.cfg.vocab_size, (2, 20)).astype(np.int32)
+    check_loss_against_jax(ARCH, "float32", jp, train_batch(tm.cfg, toks, 2), {"loss_chunk": 4})
+
+
+def test_loss_of_text_alone_matches_jax(pair):
+    """Without patches the vision decoder's loss is the text decoder's, as
+    in the reference."""
+    from test_torch_train import check_loss_against_jax
+
+    _, _, jp, tm, _ = pair("float32")
+    toks = np.random.default_rng(7).integers(0, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
+    check_loss_against_jax(ARCH, "float32", jp, {"tokens": toks})
 
 
 def test_launcher_on_cpu(capsys):
