@@ -265,8 +265,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM dense
-PEAK_BYTES = 3.35e12                                           # H100 SXM HBM3
 TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}   # o: max|Δ| / max|plain| of each row
 TOL_LSE = 2e-4                                       # lse (f32 for every dtype): absolute
 TOL_SCAN = {torch.bfloat16: 3e-2, torch.float32: 2e-5}   # SSD y: max|Δ| / max|plain|
@@ -326,8 +324,12 @@ def graph_ms(fn, reps: int, warm_s: float = 0.05) -> float:
 
 
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    """Least time the card needs: max(operations / peak, bytes / HBM rate)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    """Least time the card needs: max(operations / peak, bytes / HBM rate),
+    at the H100 SXM's spec figures (``repro_torch.core.roofline``)."""
+    from repro_torch.core import roofline
+
+    peak = {torch.bfloat16: roofline.PEAK_BF16, torch.float32: roofline.PEAK_F32}[dtype]
+    t_ops, t_bytes = flops / peak, nbytes / roofline.HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -341,21 +343,12 @@ def finite(*ts) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in ts)
 
 
-def band_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs inside the causal/window band."""
-    qpos = (Sk - Sq) + np.arange(Sq, dtype=np.int64)
-    hi = np.clip(qpos + 1, 0, Sk) if causal else np.full(Sq, Sk)
-    lo = np.clip(qpos - window + 1, 0, Sk) if window else np.zeros(Sq, np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv=None):
-    """Flash attention: least time for QK^T (length d) and PV (dv wide) over
-    the band, against the bytes of q, k (d wide), v, o (dv wide) and lse."""
-    dv = d if dv is None else dv
-    flops = 2.0 * B * Hq * (d + dv) * band_pairs(Sq, Sk, causal, window)
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * B * (d + dv) * (Sq * Hq + Sk * Hkv) + 4 * B * Hq * Sq
+    """Flash attention forward: (ms, bound by, operations, bytes) of
+    ``flash_attention.fwd_cost``."""
+    from repro_torch.kernels import flash_attention
+
+    flops, nbytes = flash_attention.fwd_cost(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv)
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -369,11 +362,6 @@ def band_mask(Sq: int, Sk: int, causal: bool, window: int) -> torch.Tensor:
     if window:
         m &= qpos - kpos < window
     return m
-
-
-def chunk_rows(S: int, Q: int):
-    """Valid rows of each chunk of Q over S."""
-    return [min(Q, S - c0) for c0 in range(0, S, Q)]
 
 
 def phase_device():
@@ -609,14 +597,11 @@ BWD_CASES = [
 
 
 def bwd_bound(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv=None):
-    """Attention backward: least time for the 5 products a pair of the band
-    needs (S, dq, dk of length d; dP, dv of length dv: 6 d + 4 dv
-    operations, 10 d at dv = d), against the bytes of q, dq, k, dk (d wide),
-    o, do, v, dv (dv wide; dtype) and lse, delta (f32)."""
-    dv = d if dv is None else dv
-    flops = 2.0 * B * Hq * (3 * d + 2 * dv) * band_pairs(Sq, Sk, causal, window)
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * B * (d + dv) * (2 * Sq * Hq + 2 * Sk * Hkv) + 2 * 4 * B * Hq * Sq
+    """Attention backward: (ms, bound by, operations, bytes) of
+    ``flash_attention.bwd_cost``."""
+    from repro_torch.kernels import flash_attention
+
+    flops, nbytes = flash_attention.bwd_cost(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv)
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -715,16 +700,11 @@ SSD_CASES = [
 ]
 
 
-def ssd_bound(B, S, H, P, N, h0, dtype, Q=64):
-    """Bytes: x, B, C (dtype), dt (f32), A, h0 read once; y (dtype) and h_last
-    (f32) written once.  Operations: the chunked products on the unmasked
-    half (C B^T and G xdt over i >= j, C h and the state update), 2 per
-    multiply-add."""
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = (esize * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H + 4 * H
-              + 4 * B * H * P * N * (2 if h0 else 1))
-    mac = sum(n * (n + 1) // 2 * (N + P) + 2 * n * P * N for n in chunk_rows(S, Q))
-    flops = 2.0 * B * H * mac
+def ssd_bound(B, S, H, P, N, h0, dtype):
+    """SSD forward: (ms, bound by, operations, bytes) of ``ssd_scan.fwd_cost``."""
+    from repro_torch.kernels import ssd_scan
+
+    flops, nbytes = ssd_scan.fwd_cost(B, S, H, P, N, h0, dtype)
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -790,18 +770,11 @@ WKV_CASES = [
 WKV_DECODE_CASE = "decode step S=1"      # the decode kernel's row in the summary
 
 
-def wkv_bound(B, S, H, hd, s0, dtype, Q=32):
-    """Bytes: r, k, v (dtype), logw (f32), u, s0 read once; y and S_last (f32)
-    written once.  Operations: per chunk the strict-lower scores (an
-    exponential and 3 operations per (t, i, c)), the bonus, y = A v, the
-    inter-chunk (r o e^{cw-w}) S, the state update, and the 2 exponentials
-    per (t, c) that form r o e^{cw-w} and k o e^{cw_Q-cw}."""
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = (esize * 3 * B * S * H * hd + 4 * B * S * H * hd + 4 * H * hd
-              + 4 * B * S * H * hd + 4 * B * H * hd * hd * (2 if s0 else 1))
-    ops = sum(n * (n - 1) // 2 * hd * 4 + n * hd * 3 + n * (n + 1) // 2 * hd * 2
-              + 4 * n * hd * hd + 2 * n * hd for n in chunk_rows(S, Q))
-    flops = float(B * H * ops)
+def wkv_bound(B, S, H, hd, s0, dtype):
+    """WKV6 forward: (ms, bound by, operations, bytes) of ``wkv6.fwd_cost``."""
+    from repro_torch.kernels import wkv6
+
+    flops, nbytes = wkv6.fwd_cost(B, S, H, hd, s0, dtype)
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -950,18 +923,11 @@ SSD_SUMMED = ("dA", "dB_", "dC")
 SSD_ROUNDED = {"dx": 3, "ddt": 0, "dB_": 1, "dC": 1}
 
 
-def ssd_bwd_bound(B, S, H, P, N, state, dtype, Q=64):
-    """Bytes: x, dy, dx (dtype) and B, C, dB, dC (dtype, once per batch), dt
-    and ddt (f32), A and dA, h0, dh_last (when given) and dh0 (f32), each
-    once.  Operations: per chunk of n rows, on the unmasked half C B^T,
-    dy xdt^T, G^T dy, W^T C and W B (2 N + 3 P a pair), and over the rows
-    the chunk-start state, dh B, xdt^T dh, dy^T h and the carry of dh (5 P N
-    a row); 2 per multiply-add."""
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = (esize * (3 * B * S * H * P + 4 * B * S * N) + 4 * 2 * B * S * H + 4 * 2 * H
-              + 4 * B * H * P * N * (3 if state else 1))
-    mac = sum(n * (n + 1) // 2 * (2 * N + 3 * P) + 5 * n * P * N for n in chunk_rows(S, Q))
-    flops = 2.0 * B * H * mac
+def ssd_bwd_bound(B, S, H, P, N, state, dtype):
+    """SSD backward: (ms, bound by, operations, bytes) of ``ssd_scan.bwd_cost``."""
+    from repro_torch.kernels import ssd_scan
+
+    flops, nbytes = ssd_scan.bwd_cost(B, S, H, P, N, state, dtype)
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -1024,21 +990,11 @@ WKV_SUMMED = ("dlogw", "du")
 WKV_ROUNDED = {"dr": 1, "dk": 1, "dv": 1}
 
 
-def wkv_bwd_bound(B, S, H, hd, state, dtype, Q=32):
-    """Bytes: r, k, v, dr, dk, dv (dtype), logw, dy, dlogw (f32), u and du,
-    s0, dS_last (when given) and ds0 (f32), each once.  Operations: per chunk
-    of n rows, on the strict lower half the scores A and the dr and dk sums
-    (an exponential and 3 operations a (t, i, c) each) and dv (2), D = dy v
-    on the lower half with its diagonal (2 a (t, i, c)), over the rows the
-    chunk-start state, S dy, dS v, (k o e) dS and the carry of dS (2 hd a
-    (row, c)), and about 12 operations a (row, c) for the u terms, the
-    decays and dlogw's sums."""
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = (esize * 6 * B * S * H * hd + 4 * 3 * B * S * H * hd + 4 * 2 * H * hd
-              + 4 * B * H * hd * hd * (3 if state else 1))
-    ops = sum(n * (n - 1) // 2 * hd * 14 + n * (n + 1) // 2 * hd * 2 + 10 * n * hd * hd
-              + 12 * n * hd for n in chunk_rows(S, Q))
-    flops = float(B * H * ops)
+def wkv_bwd_bound(B, S, H, hd, state, dtype):
+    """WKV6 backward: (ms, bound by, operations, bytes) of ``wkv6.bwd_cost``."""
+    from repro_torch.kernels import wkv6
+
+    flops, nbytes = wkv6.bwd_cost(B, S, H, hd, state, dtype)
     return (*bound_ms(flops, nbytes, dtype), flops, nbytes)
 
 
@@ -1580,6 +1536,124 @@ def read_counts(counters) -> tuple[dict[str, int], dict[str, int]]:
     return launches, {name: plain.calls for name, (_, plain) in counters.items()}
 
 
+# The dryrun phase: paths whose one more step (untimed, after their timed
+# ones) is counted on the card's real tensors by repro_torch.core.op_cost;
+# phase_dryrun counts each again on fake CUDA tensors (FakeTensorMode) and
+# holds the two counts equal.  {path: record}
+COUNTED: dict = {}
+SERVE_COUNTED = ("llama2-7b", "zamba2-7b", "rwkv6-1.6b")
+SERVED_MS: dict = {}
+
+
+def zeros_like_batch(batch: dict) -> dict:
+    """A batch of zeros with the shapes and dtypes of ``batch`` on the card
+    (fake tensors under FakeTensorMode)."""
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device="cuda") for k, t in batch.items()}
+
+
+def count_real(path: str, run, rebuild, measured_ms: float, shape, cfg) -> None:
+    """Count one call of ``run`` (a step of ``path`` on the card's real
+    tensors) with the card's peak over it, and keep ``rebuild`` (which, under
+    FakeTensorMode, builds the same call on fake tensors: ``(run, held)``)
+    for phase_dryrun.  ``shape`` is the step's ShapeConfig (its model
+    FLOPs)."""
+    from repro_torch.core import costs, op_cost
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, cost = op_cost.count(run)
+    torch.cuda.synchronize()
+    COUNTED[path] = {"real": cost, "rebuild": rebuild, "measured_ms": measured_ms,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "model_flops": costs.model_flops(cfg, shape), "shape": shape,
+                     "arch": cfg.name, "count_s": time.perf_counter() - t0}
+
+
+def serve_rebuild(cfg, batch: dict, max_len: int, kind: str, pos: int = 0):
+    """The fake twin of a served prefill (of ``batch``'s shapes) or decode
+    (at cache position ``pos``) of ``cfg`` at full width."""
+    def rebuild():
+        from repro_torch.models import build
+
+        model = build(cfg, device="cuda", seed=SEED)
+        params = model.init()
+        fake = zeros_like_batch(batch)
+        B = fake["tokens"].shape[0]
+        cache = model.init_cache(B, max_len)
+        if kind == "prefill":
+            return (lambda: model.prefill(params, cache, fake)), (params, cache, fake)
+        cache["pos"] = pos
+        tok = torch.zeros((B,), dtype=torch.long, device="cuda")
+        return (lambda: model.decode_step(params, cache, tok)), (params, cache, tok)
+    return rebuild
+
+
+def count_serve(cfg, model, params, batch: dict, max_len: int, prefill_ms: float,
+                decode_ms: float) -> None:
+    """Count one more prefill and one more decode step of a served model."""
+    from repro_torch.configs.base import ShapeConfig
+
+    B, P = batch["tokens"].shape
+    cache = model.init_cache(B, max_len)
+    count_real(f"{cfg.name} prefill", lambda: model.prefill(params, cache, batch),
+               serve_rebuild(cfg, batch, max_len, "prefill"), prefill_ms,
+               ShapeConfig("prefill", positions(batch), B, "prefill"), cfg)
+    pos = cache["pos"]
+    tok = torch.zeros((B,), dtype=torch.long, device="cuda")
+    count_real(f"{cfg.name} decode", lambda: model.decode_step(params, cache, tok),
+               serve_rebuild(cfg, batch, max_len, "decode", pos), decode_ms,
+               ShapeConfig("decode", pos + 1, B, "decode"), cfg)
+    del cache
+
+
+def train_rebuild(make_step, batch: dict):
+    """The fake twin of a train step: ``make_step()`` builds (model, params,
+    opt_state, step) as the path did."""
+    def rebuild():
+        _, params, opt_state, step = make_step()
+        fake = zeros_like_batch(batch)
+        return (lambda: step(params, opt_state, fake)), (params, opt_state, fake)
+    return rebuild
+
+
+def op_host_cost(decode_ms: float, n_calls: int, rounds: int = 15, calls: int = 200) -> dict:
+    """Host microseconds a call of the WKV6 forward at the rwkv6-1.6b decode
+    shape (batch 4, S = 1) costs through its op (``kernels.registry``) and
+    as a direct call of the checked launch the op wraps: the median over
+    ``rounds`` rounds of ``calls`` back-to-back calls (host-bound: the decode
+    kernel takes a few µs on the card).  The op's extra cost times the
+    ``n_calls`` WKV6 calls of one decode step is set beside that step's ms."""
+    from repro_torch.kernels import wkv6
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, hd = 4, 32, 64
+    r, k, v = (torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    logw = -torch.rand((B, 1, H, hd), generator=gen, device="cuda")
+    u = torch.randn((H, hd), generator=gen, device="cuda")
+    s0 = torch.randn((B, H, hd, hd), generator=gen, device="cuda")
+    fns = {"direct": lambda: wkv6._fwd_cuda(r, k, v, logw, u, s0),
+           "op": lambda: wkv6.wkv6_fwd(r, k, v, logw, u, s0)}
+    per_call = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            per_call[name].append((time.perf_counter() - t0) / calls * 1e6)
+    us = {name: float(np.median(x)) for name, x in per_call.items()}
+    extra = us["op"] - us["direct"]
+    out = {"us_per_call": us, "extra_us_per_call": extra, "decode_ms_per_token": decode_ms,
+           "wkv6_calls_per_decode_step": n_calls,
+           "share_of_decode": extra * n_calls / (decode_ms * 1e3)}
+    emit("op_host_cost", **out)
+    return out
+
+
 # Served at full width, one after the other: the launches each kernel must
 # make over one generate call of G decode steps.
 SERVED = {
@@ -1708,6 +1782,9 @@ def phase_serve(arch: str) -> dict[str, int]:
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) / G * 1e3
     del cache, logits
+    if arch in SERVE_COUNTED:
+        count_serve(cfg, model, params, batch, max_len, min(prefill_s) * 1e3, decode_ms)
+        SERVED_MS[arch] = {"prefill_ms": min(prefill_s) * 1e3, "decode_ms": decode_ms}
 
     # Decode must continue prefill: prefill(t[:k]) + decode(t[k]) vs prefill(t[:k+1]).
     rel = decode_vs_prefill(model, params, batch)
@@ -1879,6 +1956,8 @@ def check_launches(path: str, cfg, steps: int, launches, plain_calls,
 
 # Rounds of train_split timed after its warm-up round.
 SPLIT_ROUNDS = 3
+# Train paths whose one more step the dryrun phase counts.
+TRAIN_COUNTED = ("llama2-7b", "zamba2-7b", "rwkv6-1.6b")
 
 
 def step1_repeat(model, params, batch) -> dict:
@@ -1955,9 +2034,22 @@ def phase_train_fixed(arch: str, steps: int = 3) -> tuple[dict[str, int], int]:
     launches, plain_calls = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     check_launches(path, cfg, steps, launches, plain_calls)
+    step_ms = float(np.median(times[1:])) * 1e3
     with torch.no_grad():
         final = model.loss(params, batch)[0].item()
-    step_ms = float(np.median(times[1:])) * 1e3
+    if arch in TRAIN_COUNTED:
+        # After the loss of the timed steps: the counted step updates params.
+        from repro_torch.configs.base import ShapeConfig
+
+        opts = model.opts
+
+        def make_step():
+            m = build(cfg, device="cuda", seed=SEED, opts=opts)
+            p = m.init()
+            return m, p, opt_init(p, optcfg), make_train_step(m, plan, optcfg)
+        count_real(path, lambda: step(params, opt_state, batch),
+                   train_rebuild(make_step, batch), step_ms,
+                   ShapeConfig("train", positions, B, "train"), cfg)
     emit("train", path=path, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          cut=cut, n_params=n_params, dtype="bfloat16", batch=B, seq=S, plan=plan.strategy,
          optimizer=f"adamw lr {lr:g}, bf16 moments", steps=steps, losses=losses,
@@ -2183,6 +2275,25 @@ def phase_train_launcher(arch: str, steps: int = 3) -> dict[str, int]:
          launches=launches, plain_calls=plain_calls)
     if not np.isfinite(out["losses"]).all():
         raise AssertionError(f"{path}: non-finite loss {out['losses']}")
+    if arch in TRAIN_COUNTED:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.data.pipeline import DataConfig, make_source
+        from repro_torch.launch.train import build_runtime
+        from repro_torch.train.optimizer import OptConfig, opt_init
+        from repro_torch.train.step import make_train_step
+
+        data = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                      seed=SEED))
+        batch = train_batch_on(cfg, data, steps, "cuda")
+
+        def make_step():
+            _, m, plan = build_runtime(arch, False, {}, False, "cuda", SEED, S)
+            p = m.init()
+            optcfg = OptConfig(lr=1e-3)
+            return m, p, opt_init(p, optcfg), make_train_step(m, plan, optcfg)
+        count_real(path, lambda: out["step_fn"](out["params"], out["opt_state"], batch),
+                   train_rebuild(make_step, batch), step_ms,
+                   ShapeConfig("train", S, B, "train"), cfg)
     if path in TRACE_SHARES:
         from repro_torch.data.pipeline import DataConfig, make_source
 
@@ -2292,6 +2403,24 @@ def phase_profile() -> dict:
     plain = ExecutionPlan()
     want = flash_launches(cfg, plain, 1 + oracle.steps)
     n_steps = 1 + oracle.steps
+    counted = ExecutionPlan(**PROFILE_FIT[0])     # ZeRO-1 on one card: the plain-DP step
+
+    def count_profile_step(plan, run, batch, times):
+        if plan != counted:
+            return
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core.oracle import build_train_step
+
+        shape = ShapeConfig("profile", profile.s, profile.b, "train")
+
+        def rebuild():
+            fake = build_train_step(cfg, plan, shape, "cuda", seed=SEED)
+            fb = zeros_like_batch(batch)
+            return ((lambda: fake.step(fake.params, fake.opt_state, fb)),
+                    (fake.params, fake.opt_state, fb))
+        count_real(path, lambda: run.step(run.params, run.opt_state, batch), rebuild,
+                   float(np.median(times)) * 1e3, shape, cfg)
+    oracle.after_steps = count_profile_step
     rows, samples = [], {"fit": [], "held_out": []}
     for role, plans in (("fit", PROFILE_FIT), ("held_out", PROFILE_HELD_OUT)):
         for kw in plans:
@@ -2312,14 +2441,17 @@ def phase_profile() -> dict:
                            peak_device_bytes=oracle.last["peak_device_bytes"],
                            pinned_host_bytes=oracle.last["pinned_host_bytes"])
                 samples[role].append((plan, alloc, t))
-                for name, n in flash_launches(cfg, plan, 1 + oracle.steps).items():
+                # the counted plan runs one more step, counted by op_cost
+                extra = int(plan == counted)
+                for name, n in flash_launches(cfg, plan, 1 + oracle.steps + extra).items():
                     want[name] += n
-                n_steps += 1 + oracle.steps
+                n_steps += 1 + oracle.steps + extra
             elif role == "fit":
                 raise AssertionError(f"{path}: the memory model calls fit plan "
                                      f"{plan.strategy} infeasible")
             rows.append(row)
             emit("profile_plan", path=path, **row)
+    oracle.after_steps = None
     launches, plain_calls = read_counts(counters)
     check_launches(path, cfg, n_steps, launches, plain_calls, want)
     measure_s = time.perf_counter() - t0
@@ -2761,6 +2893,57 @@ def phase_simulate(sched: dict) -> dict[str, int]:
     return launches
 
 
+def phase_dryrun() -> None:
+    """Each counted path's step again on fake CUDA tensors (FakeTensorMode,
+    nothing run on the card): FLOPs, bytes, collective bytes and calls per
+    kernel op must equal the real count; then its roofline terms at the
+    card's spec figures beside the step's measured ms, and MemTracker's peak
+    of the fake step beside the card's peak of the real one (not gated).
+    Last, one production cell of the dry run, gpt2-1.5b train_4k on the
+    fake 16 x 16 mesh (256 fake ranks; run after the card's process group is
+    gone)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t_phase = time.perf_counter()
+    for path, rec in COUNTED.items():
+        t0 = time.perf_counter()
+        with FakeTensorMode():
+            run, held = rec["rebuild"]()
+            fake, peak = dryrun.count_step(run, held)
+        real = rec["real"]
+        if fake.summary() != real.summary():
+            diff = {k: (v, fake.summary()[k]) for k, v in real.summary().items()
+                    if fake.summary()[k] != v}
+            raise AssertionError(f"{path}: real and fake counts differ (real, fake): {diff}")
+        rep = roofline.analyze(real, arch=rec["arch"], shape=rec["shape"], mesh={"card": 1},
+                               model_flops=rec["model_flops"], peak_bytes=peak)
+        t_bound_ms = rep.t_bound * 1e3
+        emit("dryrun_path", path=path, flops=real.flops, bytes=real.bytes,
+             dot_flops=real.dot_flops, coll_bytes=real.coll_bytes,
+             kernel_calls=dict(real.kernel_calls), kernel_flops=dict(real.kernel_flops),
+             n_ops=real.n_ops, t_compute_ms=rep.t_compute * 1e3,
+             t_memory_ms=rep.t_memory * 1e3, t_bound_ms=t_bound_ms,
+             bottleneck=rep.bottleneck, measured_ms=rec["measured_ms"],
+             bound_over_measured=t_bound_ms / rec["measured_ms"],
+             model_flops=rec["model_flops"], useful_ratio=rep.useful_ratio,
+             roofline_fraction=rep.roofline_fraction, memtracker_peak_bytes=peak,
+             max_memory_allocated=rec["max_memory_allocated"],
+             real_count_s=rec["count_s"], fake_count_s=time.perf_counter() - t0)
+    mesh = make_production_mesh()
+    try:
+        row = dryrun.run_cell("gpt2-1.5b", "train_4k", mesh, verbose=False)
+    finally:
+        dist.destroy_process_group()
+    if row.get("status") != "ok":
+        raise AssertionError(f"the dry run's gpt2-1.5b train_4k cell: {row}")
+    emit("dryrun_cell", **row)
+    emit("dryrun", paths=list(COUNTED), seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -2784,6 +2967,9 @@ def main() -> int:
     mains["wkv6_fwd"], mains["wkv6_decode"] = phase_wkv_kernels()
     phase_reference()
     by_path = {arch: phase_serve(arch) for arch in SERVED}
+    from repro_torch import configs
+
+    op_host_cost(SERVED_MS["rwkv6-1.6b"]["decode_ms"], configs.get("rwkv6-1.6b").n_layers)
     # The training phases run after serving, so that the serve phases meet the
     # allocator in the state they always have (their peaks compare to the byte).
     mains.update(phase_bwd_kernels())
@@ -2806,6 +2992,7 @@ def main() -> int:
     by_path[f"{PROFILE_ARCH} schedule"] = sched["launches"]
     by_path[f"{PROFILE_ARCH} simulate"] = phase_simulate(sched)
     dist.destroy_process_group()
+    phase_dryrun()
     # wkv6_fwd's launch count holds every call of its wrapper; the S = 1 ones
     # ran the decode kernel, reported as a kernel of its own.
     for counts in by_path.values():

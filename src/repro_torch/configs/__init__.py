@@ -1,3 +1,12 @@
-from repro_torch.configs.base import ARCHS, ModelConfig, ShapeConfig, get, get_reduced
+from repro_torch.configs.base import (
+    ARCHS,
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    get,
+    get_reduced,
+    shape_applicable,
+)
 
-__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "get", "get_reduced"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "get", "get_reduced",
+           "shape_applicable"]

@@ -97,6 +97,11 @@ class ModelConfig:
         return self.family == "ssm"
 
     @property
+    def subquadratic(self) -> bool:
+        """True if long-context (500k) decode is supported (SSM/hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def n_moe_layers(self) -> int:
         if self.n_experts == 0:
             return 0
@@ -112,6 +117,28 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                      # train | prefill | decode
+
+
+# Input shapes (assigned, shared by all 10 LM-family architectures), as the
+# reference's ``SHAPES``.
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch x shape) cell is runnable, and why not if skipped:
+    ``long_500k`` needs sub-quadratic attention (the reference's rule and
+    reason, word for word)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, (
+            f"{cfg.name} is full-attention (family={cfg.family}); 500k-token "
+            "decode requires sub-quadratic attention (see DESIGN.md)"
+        )
+    return True, ""
 
 
 # Architectures the port serves, and where the others are queued.

@@ -294,6 +294,10 @@ class TorchMicroOracle:
         self.device = resolve_device(device)
         self.env = env or _device_env(self.device)
         self.last: dict = {}
+        # after_steps(plan, run, batch, times), when set, sees each run after
+        # its timed steps and before it is freed (a caller counting one
+        # more step of it).
+        self.after_steps = None
         self.t_step = self._time(ExecutionPlan(), ShapeConfig("micro", seq, batch, "train"))
         self.tokens = batch * seq
 
@@ -338,13 +342,16 @@ class TorchMicroOracle:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         run = build_train_step(self.cfg, plan, shape, dev, seed=self.seed)
-        times, losses = run_steps(run, run.model.dummy_batch(shape), self.steps)
+        batch = run.model.dummy_batch(shape)
+        times, losses = run_steps(run, batch, self.steps)
         self.last = {
             "step_s": times,
             "loss": losses,
             "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None),
             "pinned_host_bytes": _pinned_bytes(run.opt_state)}
+        if self.after_steps is not None:
+            self.after_steps(plan, run, batch, times)
         run.release()
         return float(np.median(times))
 

@@ -12,12 +12,17 @@ the FlashAttention-2 backward the JAX package writes at the HLO level,
 and lse, and do, and :class:`FlashAttention` ties the two together for
 autograd.
 
-``flash_attention_fwd`` dispatches by the device of its inputs: a CPU tensor
-goes to ``flash_attention_plain``; a CUDA tensor launches the kernel or
-raises.  bfloat16 runs the tensor-core kernel, which copies 16 bytes at a
-time, so its inputs need 16-byte-aligned data and batch, row and head
-strides that are multiples of 8 elements (``_check`` raises otherwise;
-nothing is copied); float32 runs the CUDA-core kernel, which takes any
+``flash_attention_fwd`` and ``flash_attention_bwd`` each call one op,
+``repro_torch::flash_attention_fwd`` / ``_bwd`` (``kernels.registry``),
+which dispatches by the device of its inputs: a CPU tensor goes to the
+plain version; a CUDA tensor launches the kernel or raises; a fake tensor
+gets its outputs allocated and nothing run; any other device (meta too)
+raises.  ``fwd_cost`` and ``bwd_cost`` give the work and the bytes of one
+call (the kernel table's bound and the op's FLOP formula).  bfloat16 runs
+the tensor-core kernel, which copies 16 bytes at a time, so its inputs need
+16-byte-aligned data and batch, row and head strides that are multiples of
+8 elements (``_check`` raises otherwise; nothing is copied); float32 runs
+the CUDA-core kernel, which takes any
 strides.  The forward takes the head-dim pairs ``FWD_HEAD_DIMS``: v as
 wide as q and k (64, 96, 112, 128 or 256), or q/k 192 and v 128 (MLA); the
 backward the same pairs (``BWD_HEAD_DIMS``); any other pair raises before
@@ -39,7 +44,10 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import registry
 
 HEAD_DIMS = (64, 96, 112, 128, 256)
 # (d of q and k, dv of v and o) the forward kernel takes: dv = d, and
@@ -59,6 +67,40 @@ def _band(q0: int, q1: int, Sq: int, Sk: int, causal: bool, window: int):
     hi = min(Sk, max(0, off + q1)) if causal else Sk
     lo = max(0, off + q0 - window + 1) if window else 0
     return lo, hi
+
+
+def band_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs inside the causal/window band."""
+    qpos = (Sk - Sq) + np.arange(Sq, dtype=np.int64)
+    hi = np.clip(qpos + 1, 0, Sk) if causal else np.full(Sq, Sk)
+    lo = np.clip(qpos - window + 1, 0, Sk) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _esize(dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def fwd_cost(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv=None) -> tuple[float, float]:
+    """(operations, bytes) of one forward: QK^T (length d) and PV (dv wide)
+    over the band, 2 a multiply-add; the bytes of q, k (d wide), v, o (dv
+    wide) and lse, each once."""
+    dv = d if dv is None else dv
+    flops = 2.0 * B * Hq * (d + dv) * band_pairs(Sq, Sk, causal, window)
+    nbytes = _esize(dtype) * B * (d + dv) * (Sq * Hq + Sk * Hkv) + 4 * B * Hq * Sq
+    return flops, nbytes
+
+
+def bwd_cost(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, dv=None) -> tuple[float, float]:
+    """(operations, bytes) of one backward: the 5 products a pair of the band
+    needs (S, dq, dk of length d; dP, dv of length dv: 6 d + 4 dv
+    operations, 10 d at dv = d), against the bytes of q, dq, k, dk (d wide),
+    o, do, v, dv (dv wide; dtype) and lse, delta (f32)."""
+    dv = d if dv is None else dv
+    flops = 2.0 * B * Hq * (3 * d + 2 * dv) * band_pairs(Sq, Sk, causal, window)
+    nbytes = (_esize(dtype) * B * (d + dv) * (2 * Sq * Hq + 2 * Sk * Hkv)
+              + 2 * 4 * B * Hq * Sq)
+    return flops, nbytes
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
@@ -194,16 +236,40 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
     or bfloat16; last dim contiguous; for bfloat16, 16-byte aligned data and
     strides in multiples of 8) on the current stream.  CPU tensors go to
     :func:`flash_attention_plain`.  Any other device raises."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, "
-                         f"not {q.device}")
+    registry.check_device("flash_attention_fwd", q)
+    return FWD_OP(q, k, v, bool(causal), int(window), scale)
+
+
+def _fwd_cuda(q, k, v, causal, window, scale):
     _check(q, k, v)
     o, lse = launch(_kernel_fn(), q, k, v, causal=causal, window=window, scale=scale)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.noncausal_launches += not causal
     return o, lse
+
+
+def _fwd_cpu(q, k, v, causal, window, scale):
+    return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def _fwd_fake(q, k, v, causal, window, scale):
+    B, Sq, Hq, _ = q.shape
+    return (q.new_empty((B, Sq, Hq, v.shape[3])),
+            q.new_empty((B, Hq, Sq), dtype=torch.float32))
+
+
+FWD_OP = registry.define(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, float? scale) -> (Tensor, Tensor)",
+    cuda=_fwd_cuda, cpu=_fwd_cpu, fake=_fwd_fake)
+
+
+def _fwd_flops(q, k, v, causal, window, scale) -> float:
+    B, Sq, Hq, d = q
+    return fwd_cost(B, Sq, k[1], Hq, k[2], d, causal, window, torch.float32, dv=v[3])[0]
+
+
+registry.flop_formula(FWD_OP, _fwd_flops)
 
 
 def launch(fn, q, k, v, *, causal, window, scale):
@@ -343,11 +409,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=Non
     on the current stream.  do is made contiguous first: autograd may hand
     over any layout.  CPU tensors go to :func:`flash_attention_bwd_plain`.  Any other
     device raises."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
-                                         scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
+    registry.check_device("flash_attention_bwd", q)
+    return BWD_OP(q, k, v, o, lse, do, bool(causal), int(window), scale)
+
+
+def _bwd_cuda(q, k, v, o, lse, do, causal, window, scale):
     do = do.contiguous()
     _check_bwd(q, k, v, o, lse, do)
     out = launch_bwd(_bwd_kernel_fn(), q, k, v, o, lse, do, causal=causal, window=window,
@@ -355,6 +421,30 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=Non
     flash_attention_bwd.launches += 1
     flash_attention_bwd.noncausal_launches += not causal
     return out
+
+
+def _bwd_cpu(q, k, v, o, lse, do, causal, window, scale):
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                     scale=scale)
+
+
+def _bwd_fake(q, k, v, o, lse, do, causal, window, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+BWD_OP = registry.define(
+    "flash_attention_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, bool causal, "
+    "int window, float? scale) -> (Tensor, Tensor, Tensor)",
+    cuda=_bwd_cuda, cpu=_bwd_cpu, fake=_bwd_fake)
+
+
+def _bwd_flops(q, k, v, o, lse, do, causal, window, scale) -> float:
+    B, Sq, Hq, d = q
+    return bwd_cost(B, Sq, k[1], Hq, k[2], d, causal, window, torch.float32, dv=v[3])[0]
+
+
+registry.flop_formula(BWD_OP, _bwd_flops)
 
 
 def launch_bwd(fn, q, k, v, o, lse, do, *, causal, window, scale):
@@ -388,8 +478,9 @@ flash_attention_bwd.noncausal_launches = 0
 class FlashAttention(torch.autograd.Function):
     """softmax(scale q k^T) v with a gradient: the forward runs
     :func:`flash_attention_fwd` and keeps (q, k, v, o, lse); the backward
-    runs :func:`flash_attention_bwd` on them.  Both dispatch by device, so
-    CPU tensors take the plain versions and CUDA tensors the kernels."""
+    runs :func:`flash_attention_bwd` on them.  Both call their op, which
+    dispatches by device, so CPU tensors take the plain versions and CUDA
+    tensors the kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):

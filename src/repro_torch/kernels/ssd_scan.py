@@ -11,8 +11,13 @@ Rounding follows the model path: ``xdt = x * dt`` is formed in x's dtype,
 ``dA = dt * A`` in f32, every product and the state in f32, and y is cast
 to x's dtype.
 
-``ssd_scan_fwd`` dispatches by the device of its inputs: a CPU tensor goes
-to ``ssd_scan_plain``; a CUDA tensor launches the kernel or raises.
+``ssd_scan_fwd`` (and ``ssd_scan_bwd``) calls one op,
+``repro_torch::ssd_scan_fwd`` (``_bwd``; ``kernels.registry``), which
+dispatches by the device of its inputs: a CPU tensor goes to
+``ssd_scan_plain``; a CUDA tensor launches the kernel or raises; a fake
+tensor gets its outputs allocated and nothing run; any other device
+(meta too) raises.  ``fwd_cost`` and
+``bwd_cost`` give the work and the bytes of one call.
 bfloat16 runs the tensor-core kernel, which copies 16 bytes at a time, so
 x, B_ and C need 16-byte-aligned data and batch, time (and x's head)
 strides that are multiples of 8 elements (``_check`` raises otherwise;
@@ -36,6 +41,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import registry
+
 # (head dim P, state size N) pairs the kernel is instantiated for: zamba2-7b's.
 SHAPES = ((64, 64),)
 CHUNK = 64                       # the kernel's chunk; the plain version's default
@@ -46,6 +53,37 @@ def _acc(t) -> torch.dtype:
     """The plain versions' arithmetic: float32, or float64 for float64
     inputs (as ``torch.autograd.gradcheck`` gives them)."""
     return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def chunk_rows(S: int, Q: int) -> list[int]:
+    """Valid rows of each chunk of Q over S."""
+    return [min(Q, S - c0) for c0 in range(0, S, Q)]
+
+
+def fwd_cost(B, S, H, P, N, h0, dtype, Q=CHUNK) -> tuple[float, float]:
+    """(operations, bytes) of one forward.  Bytes: x, B, C (dtype), dt (f32),
+    A, h0 read once; y (dtype) and h_last (f32) written once.  Operations:
+    the chunked products on the unmasked half (C B^T and G xdt over i >= j,
+    C h and the state update), 2 per multiply-add."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H + 4 * H
+              + 4 * B * H * P * N * (2 if h0 else 1))
+    mac = sum(n * (n + 1) // 2 * (N + P) + 2 * n * P * N for n in chunk_rows(S, Q))
+    return 2.0 * B * H * mac, nbytes
+
+
+def bwd_cost(B, S, H, P, N, state, dtype, Q=CHUNK) -> tuple[float, float]:
+    """(operations, bytes) of one backward.  Bytes: x, dy, dx (dtype) and B,
+    C, dB, dC (dtype, once per batch), dt and ddt (f32), A and dA, h0,
+    dh_last (when given) and dh0 (f32), each once.  Operations: per chunk of
+    n rows, on the unmasked half C B^T, dy xdt^T, G^T dy, W^T C and W B (2 N
+    + 3 P a pair), and over the rows the chunk-start state, dh B, xdt^T dh,
+    dy^T h and the carry of dh (5 P N a row); 2 per multiply-add."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (3 * B * S * H * P + 4 * B * S * N) + 4 * 2 * B * S * H + 4 * 2 * H
+              + 4 * B * H * P * N * (3 if state else 1))
+    mac = sum(n * (n + 1) // 2 * (2 * N + 3 * P) + 5 * n * P * N for n in chunk_rows(S, Q))
+    return 2.0 * B * H * mac, nbytes
 
 
 def ssd_scan_plain(x, dt, A, B_, C, h0=None, *, chunk: int = CHUNK):
@@ -280,14 +318,33 @@ def ssd_scan_fwd(x, dt, A, B_, C, h0=None):
     with any strides; (P, N) in ``SHAPES``).  CPU tensors go to
     :func:`ssd_scan_plain`, in the kernel's chunks of ``CHUNK``.  Any other
     device raises."""
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B_, C, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan_fwd runs on cuda or cpu tensors, not {x.device}")
+    registry.check_device("ssd_scan_fwd", x)
+    return FWD_OP(x, dt, A, B_, C, h0)
+
+
+def _fwd_cuda(x, dt, A, B_, C, h0):
     _check(x, dt, A, B_, C, h0)
     y, h_last = launch(_kernel_fn(), x, dt, A, B_, C, h0)
     ssd_scan_fwd.launches += 1
     return y, h_last
+
+
+def _fwd_fake(x, dt, A, B_, C, h0):
+    Bb, S, H, P = x.shape
+    return x.new_empty(x.shape), x.new_empty((Bb, H, P, B_.shape[-1]), dtype=torch.float32)
+
+
+FWD_OP = registry.define(
+    "ssd_scan_fwd", "(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor C, Tensor? h0) -> "
+    "(Tensor, Tensor)", cuda=_fwd_cuda, cpu=lambda *a: ssd_scan_plain(*a), fake=_fwd_fake)
+
+
+def _fwd_flops(x, dt, A, B_, C, h0) -> float:
+    Bb, S, H, P = x
+    return fwd_cost(Bb, S, H, P, B_[-1], h0 is not None, torch.float32)[0]
+
+
+registry.flop_formula(FWD_OP, _fwd_flops)
 
 
 def launch(fn, x, dt, A, B_, C, h0):
@@ -364,15 +421,38 @@ def ssd_scan_bwd(x, dt, A, B_, C, h0, dy, dh_last):
     summed here over that axis in a fixed order (no atomics, so the result
     does not change from run to run).  CPU tensors go to
     :func:`ssd_scan_bwd_plain`.  Any other device raises."""
-    if x.device.type == "cpu":
-        return ssd_scan_bwd_plain(x, dt, A, B_, C, h0, dy, dh_last)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan_bwd runs on cuda or cpu tensors, not {x.device}")
+    registry.check_device("ssd_scan_bwd", x)
+    return BWD_OP(x, dt, A, B_, C, h0, dy, dh_last)
+
+
+def _bwd_cuda(x, dt, A, B_, C, h0, dy, dh_last):
     dy = dy.contiguous()
     _check_bwd(x, dt, A, B_, C, h0, dy, dh_last)
     grads = launch_bwd(_bwd_kernel_fn(), x, dt, A, B_, C, h0, dy, dh_last)
     ssd_scan_bwd.launches += 1
     return grads
+
+
+def _bwd_fake(x, dt, A, B_, C, h0, dy, dh_last):
+    Bb, S, H, P = x.shape
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty(x.shape), x.new_empty((Bb, S, H), **f32), x.new_empty((H,), **f32),
+            B_.new_empty(B_.shape), C.new_empty(C.shape),
+            x.new_empty((Bb, H, P, B_.shape[-1]), **f32))
+
+
+BWD_OP = registry.define(
+    "ssd_scan_bwd", "(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor C, Tensor? h0, "
+    "Tensor dy, Tensor? dh_last) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cuda=_bwd_cuda, cpu=lambda *a: ssd_scan_bwd_plain(*a), fake=_bwd_fake)
+
+
+def _bwd_flops(x, dt, A, B_, C, h0, dy, dh_last) -> float:
+    Bb, S, H, P = x
+    return bwd_cost(Bb, S, H, P, B_[-1], h0 is not None, torch.float32)[0]
+
+
+registry.flop_formula(BWD_OP, _bwd_flops)
 
 
 def launch_bwd(fn, x, dt, A, B_, C, h0, dy, dh_last):
@@ -413,8 +493,9 @@ ssd_scan_bwd.launches = 0
 class SSDScan(torch.autograd.Function):
     """(y, h_last) of the SSD scan with a gradient: the forward runs
     :func:`ssd_scan_fwd` and keeps its inputs; the backward runs
-    :func:`ssd_scan_bwd` on them.  Both dispatch by device, so CPU tensors
-    take the plain versions and CUDA tensors the kernels.  A gradient of
+    :func:`ssd_scan_bwd` on them.  Both call their op, which dispatches by
+    device, so CPU tensors take the plain versions and CUDA tensors the
+    kernels.  A gradient of
     h_last that autograd does not hand over (training never reads h_last)
     is zero."""
 

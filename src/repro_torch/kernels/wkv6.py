@@ -8,9 +8,13 @@ is wider than the Pallas kernel: an initial state ``s0`` in, the last state
 last chunk is masked, where the Pallas wrapper asserts that the chunk
 divides S).  y and the state are f32 whatever the dtype of r, k, v.
 
-``wkv6_fwd`` dispatches by the device of its inputs: a CPU tensor goes to
-``wkv6_plain``; a CUDA tensor launches a kernel or raises.  On the card, S = 1
-(a decode step) runs the decode kernel in either dtype; S > 1 runs the
+``wkv6_fwd`` (and ``wkv6_bwd``) calls one op, ``repro_torch::wkv6_fwd``
+(``_bwd``; ``kernels.registry``), which dispatches by the device of its
+inputs: a CPU tensor goes to ``wkv6_plain``; a CUDA tensor launches a
+kernel or raises; a fake tensor gets its outputs allocated and nothing
+run; any other device (meta too) raises.  ``fwd_cost`` and ``bwd_cost``
+give the work and the bytes of one call.  On the card, S = 1 (a decode
+step) runs the decode kernel in either dtype; S > 1 runs the
 tensor-core kernel for bfloat16, which copies 16 bytes at a time, so r, k
 and v need 16-byte-aligned data and batch, time and head strides in
 multiples of 8 elements, and logw 16-byte-aligned data and strides in
@@ -38,6 +42,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import registry
+
 HEAD_DIMS = (64,)                # rwkv6-1.6b's head dim
 CHUNK = 32                       # the kernel's chunk, as the reference's; the plain default
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,6 +53,43 @@ def _acc(t) -> torch.dtype:
     """The plain versions' arithmetic: float32, or float64 for float64
     inputs (as ``torch.autograd.gradcheck`` gives them)."""
     return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def chunk_rows(S: int, Q: int) -> list[int]:
+    """Valid rows of each chunk of Q over S."""
+    return [min(Q, S - c0) for c0 in range(0, S, Q)]
+
+
+def fwd_cost(B, S, H, hd, s0, dtype, Q=CHUNK) -> tuple[float, float]:
+    """(operations, bytes) of one forward.  Bytes: r, k, v (dtype), logw
+    (f32), u, s0 read once; y and S_last (f32) written once.  Operations: per
+    chunk the strict-lower scores (an exponential and 3 operations per (t, i,
+    c)), the bonus, y = A v, the inter-chunk (r o e^{cw-w}) S, the state
+    update, and the 2 exponentials per (t, c) that form r o e^{cw-w} and k o
+    e^{cw_Q-cw}."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * 3 * B * S * H * hd + 4 * B * S * H * hd + 4 * H * hd
+              + 4 * B * S * H * hd + 4 * B * H * hd * hd * (2 if s0 else 1))
+    ops = sum(n * (n - 1) // 2 * hd * 4 + n * hd * 3 + n * (n + 1) // 2 * hd * 2
+              + 4 * n * hd * hd + 2 * n * hd for n in chunk_rows(S, Q))
+    return float(B * H * ops), nbytes
+
+
+def bwd_cost(B, S, H, hd, state, dtype, Q=CHUNK) -> tuple[float, float]:
+    """(operations, bytes) of one backward.  Bytes: r, k, v, dr, dk, dv
+    (dtype), logw, dy, dlogw (f32), u and du, s0, dS_last (when given) and
+    ds0 (f32), each once.  Operations: per chunk of n rows, on the strict
+    lower half the scores A and the dr and dk sums (an exponential and 3
+    operations a (t, i, c) each) and dv (2), D = dy v on the lower half with
+    its diagonal (2 a (t, i, c)), over the rows the chunk-start state, S dy,
+    dS v, (k o e) dS and the carry of dS (2 hd a (row, c)), and about 12
+    operations a (row, c) for the u terms, the decays and dlogw's sums."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * 6 * B * S * H * hd + 4 * 3 * B * S * H * hd + 4 * 2 * H * hd
+              + 4 * B * H * hd * hd * (3 if state else 1))
+    ops = sum(n * (n - 1) // 2 * hd * 14 + n * (n + 1) // 2 * hd * 2 + 10 * n * hd * hd
+              + 12 * n * hd for n in chunk_rows(S, Q))
+    return float(B * H * ops), nbytes
 
 
 def wkv6_plain(r, k, v, logw, u, s0=None, *, chunk: int = CHUNK):
@@ -257,16 +300,36 @@ def wkv6_fwd(r, k, v, logw, u, s0=None):
     take any other strides).
     CPU tensors go to :func:`wkv6_plain`, in the kernel's chunks of
     ``CHUNK``.  Any other device raises."""
-    if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, logw, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6_fwd runs on cuda or cpu tensors, not {r.device}")
+    registry.check_device("wkv6_fwd", r)
+    return FWD_OP(r, k, v, logw, u, s0)
+
+
+def _fwd_cuda(r, k, v, logw, u, s0):
     _check(r, k, v, logw, u, s0)
     y, s_last = launch(_kernel_fn(), r, k, v, logw, u, s0)
     wkv6_fwd.launches += 1
     if r.shape[1] == 1:
         wkv6_fwd.decode_launches += 1
     return y, s_last
+
+
+def _fwd_fake(r, k, v, logw, u, s0):
+    B, S, H, hd = r.shape
+    return (r.new_empty(r.shape, dtype=torch.float32),
+            r.new_empty((B, H, hd, hd), dtype=torch.float32))
+
+
+FWD_SCHEMA = "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, Tensor? s0) -> (Tensor, Tensor)"
+FWD_OP = registry.define("wkv6_fwd", FWD_SCHEMA, cuda=_fwd_cuda, cpu=lambda *a: wkv6_plain(*a),
+                         fake=_fwd_fake)
+
+
+def _fwd_flops(r, k, v, logw, u, s0) -> float:
+    B, S, H, hd = r
+    return fwd_cost(B, S, H, hd, s0 is not None, torch.float32)[0]
+
+
+registry.flop_formula(FWD_OP, _fwd_flops)
 
 
 def launch(fn, r, k, v, logw, u, s0):
@@ -358,15 +421,38 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, dS_last):
     in a fixed order (no atomics, so the result does not change from run to
     run).  CPU tensors go to :func:`wkv6_bwd_plain`.  Any other device
     raises."""
-    if r.device.type == "cpu":
-        return wkv6_bwd_plain(r, k, v, logw, u, s0, dy, dS_last)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6_bwd runs on cuda or cpu tensors, not {r.device}")
+    registry.check_device("wkv6_bwd", r)
+    return BWD_OP(r, k, v, logw, u, s0, dy, dS_last)
+
+
+def _bwd_cuda(r, k, v, logw, u, s0, dy, dS_last):
     dy = dy.contiguous()
     _check_bwd(r, k, v, logw, u, s0, dy, dS_last)
     grads = launch_bwd(*_bwd_kernel_fn(), r, k, v, logw, u, s0, dy, dS_last)
     wkv6_bwd.launches += 1
     return grads
+
+
+def _bwd_fake(r, k, v, logw, u, s0, dy, dS_last):
+    B, S, H, hd = r.shape
+    f32 = dict(dtype=torch.float32)
+    return (r.new_empty(r.shape), k.new_empty(k.shape), v.new_empty(v.shape),
+            r.new_empty(r.shape, **f32), r.new_empty((H, hd), **f32),
+            r.new_empty((B, H, hd, hd), **f32))
+
+
+BWD_OP = registry.define(
+    "wkv6_bwd", "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, Tensor? s0, "
+    "Tensor dy, Tensor? dS_last) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cuda=_bwd_cuda, cpu=lambda *a: wkv6_bwd_plain(*a), fake=_bwd_fake)
+
+
+def _bwd_flops(r, k, v, logw, u, s0, dy, dS_last) -> float:
+    B, S, H, hd = r
+    return bwd_cost(B, S, H, hd, s0 is not None, torch.float32)[0]
+
+
+registry.flop_formula(BWD_OP, _bwd_flops)
 
 
 def launch_bwd(fn, sizes, r, k, v, logw, u, s0, dy, dS_last):
@@ -406,8 +492,9 @@ wkv6_bwd.launches = 0
 class WKV6(torch.autograd.Function):
     """(y, S_last) of the WKV with a gradient: the forward runs
     :func:`wkv6_fwd` and keeps its inputs; the backward runs
-    :func:`wkv6_bwd` on them.  Both dispatch by device, so CPU tensors take
-    the plain versions and CUDA tensors the kernels.  A gradient of S_last
+    :func:`wkv6_bwd` on them.  Both call their op, which dispatches by
+    device, so CPU tensors take the plain versions and CUDA tensors the
+    kernels.  A gradient of S_last
     that autograd does not hand over (training never reads it) is zero."""
 
     @staticmethod

@@ -13,6 +13,12 @@ Without a process group, ``make_mesh`` starts one from the environment
 ``torchrun`` sets (``env://``), and ``single_device_mesh`` starts a
 one-rank group on an in-process store.  A group of the other backend, or a
 world of another size than the mesh, raises: every rank sits in the mesh.
+
+``make_production_mesh`` is the twin of the reference's: the 16 x 16
+("data", "model") or 2 x 16 x 16 ("pod", "data", "model") mesh, here on a
+fake process group (torch's in-tree ``"fake"`` backend, ``FakeStore``) of
+256 or 512 ranks held by this one process as rank 0: its collectives move
+nothing, so a dry run counts one rank's step without a cluster.
 """
 
 from __future__ import annotations
@@ -73,6 +79,39 @@ def single_device_mesh(device="cuda") -> DeviceMesh:
     if not dist.is_initialized():
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return make_mesh(1, 1, device=dev)
+
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(multi_pod: bool = False, device="cpu") -> DeviceMesh:
+    """The production mesh, 16 x 16 (256 chips) or 2 x 16 x 16 (512), on a
+    fake process group of that many ranks, this process rank 0."""
+    shape, names = PRODUCTION[bool(multi_pod)]
+    return make_fake_mesh(shape, names, device=device)
+
+
+def make_fake_mesh(shape: tuple[int, ...], names: tuple[str, ...], device="cpu") -> DeviceMesh:
+    """A mesh of ``shape`` on a fake process group of as many ranks, this
+    process rank 0.  A fake group of another size is replaced; any other
+    group raises (a real world is never torn down).  ``FakeStore`` comes
+    from torch's testing package (checked against torch 2.11 and 2.13)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    n = 1
+    for s in shape:
+        n *= s
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is running; a fake "
+                               f"mesh needs a fake group of its own")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dev = torch.device(device)
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape), mesh_dim_names=names)
 
 
 def mesh_shape(mesh: DeviceMesh) -> dict[str, int]:

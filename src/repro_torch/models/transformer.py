@@ -46,7 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import nn
-from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.attention import (attention, current_seq_shard, decode_attention,
+                                          global_len, local_slot)
 from repro_torch.models.mla import MLA, mla_attention, mla_decode, mla_prefill
 from repro_torch.models.moe import MoE, moe_apply, remat_contexts
 
@@ -244,14 +245,15 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, k_cache, v_cache, length: int
     """One-token step.  x: (B,1,D); caches (B,Smax,Hkv,hd), written in place.
     Sliding-window models use a ring buffer of size <= window."""
     B = x.shape[0]
-    Smax = k_cache.shape[1]
+    Smax = global_len(k_cache.shape[1])
     if not cfg.sliding_window and length >= Smax:
         raise ValueError(f"KV cache full: position {length} >= cache length {Smax}")
     positions = torch.full((B, 1), length, dtype=torch.long, device=x.device)
     q, k, v = qkv(p, x, cfg, positions)
-    slot = length % Smax if cfg.sliding_window else length
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
+    slot = local_slot(length % Smax if cfg.sliding_window else length, k_cache.shape[1])
+    if slot is not None:
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
     o = decode_attention(q[:, 0], k_cache, v_cache, min(length + 1, Smax))
     return o.reshape(B, 1, -1) @ p.wo
 
@@ -376,6 +378,17 @@ def ring_write(cache_arr, kv, window: int) -> None:
     """Write full-sequence kv (B,S,...) into cache (B,W,...) in place; with a
     window and S > W, the last W positions land at slot pos % W."""
     S, W = kv.shape[1], cache_arr.shape[1]
+    shard = current_seq_shard()
+    if shard is not None:
+        if window:
+            raise NotImplementedError("a sliding-window ring cache split over the sequence "
+                                      "axis is not ported (ROADMAP A14b)")
+        if S > W * shard.size:
+            raise ValueError(f"prompt of {S} tokens exceeds the KV cache length "
+                             f"{W * shard.size}")
+        n = max(0, min(W, S - shard.offset))
+        cache_arr[:, :n] = kv[:, shard.offset:shard.offset + n]
+        return
     if not window or S <= W:
         if S > W:
             raise ValueError(f"prompt of {S} tokens exceeds the KV cache length {W}")

@@ -69,6 +69,35 @@ def _all_gather(t: torch.Tensor, group, size: int) -> list[torch.Tensor]:
     return out
 
 
+def mesh_ranks(mesh) -> list[int]:
+    """The mesh's ranks in row-major order, as plain integers (read outside
+    any fake-tensor mode, which would refuse to hand a tensor's data over)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        return [int(r) for r in mesh.mesh.flatten().tolist()]
+
+
+def rank_groups(mesh, axes: tuple[str, ...]) -> list[list[int]]:
+    """The ranks of ``mesh`` grouped by their coordinates on the axes not in
+    ``axes``: one list per group, each ordered by its index over ``axes``
+    (row-major, as a spec entry naming several axes orders them)."""
+    names = list(mesh.mesh_dim_names)
+    sizes = [int(n) for n in mesh.mesh.shape]
+    ranks = mesh_ranks(mesh)
+    groups: dict[tuple, list[tuple[int, int]]] = {}
+    for flat, rank in enumerate(ranks):
+        coord, rest = {}, flat
+        for name, n in zip(reversed(names), reversed(sizes)):
+            coord[name], rest = rest % n, rest // n
+        key = tuple(coord[a] for a in names if a not in axes)
+        index = 0
+        for a in axes:
+            index = index * sizes[names.index(a)] + coord[a]
+        groups.setdefault(key, []).append((index, rank))
+    return [[r for _, r in sorted(g)] for _, g in sorted(groups.items())]
+
+
 class Layout:
     def __init__(self, model, plan: ExecutionPlan, mesh):
         cfg = model.cfg
@@ -78,8 +107,13 @@ class Layout:
         if mesh.device_type != model.device.type:
             raise ValueError(f"a {mesh.device_type} mesh cannot hold a model on "
                              f"{model.device.type}")
-        dp = sh.axis_size(self.shape, sh.data_axes(self.shape))
-        if (dp, self.shape.get("model", 1)) != (plan.dp, plan.tp):
+        # With tp == 1 the "model" axis carries data parallelism too
+        # (``sharding.batch_axes``), so the plan's dp spans it.
+        self.daxes = sh.batch_axes(self.shape, plan)
+        self.dsz = sh.axis_size(self.shape, self.daxes)
+        tp = sh.axis_size(self.shape, tuple(a for a in ("model",) if a not in self.daxes
+                                            and a in self.shape))
+        if (self.dsz, tp) != (plan.dp, plan.tp):
             raise ValueError(f"mesh {self.shape} does not match the plan's dp={plan.dp}, "
                              f"tp={plan.tp}")
         meta = family_of(cfg).module(cfg, "meta", model.dtype)
@@ -90,14 +124,12 @@ class Layout:
 
         self.coord = coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.rank = dist.get_rank()
-        self.daxes = sh.batch_axes(self.shape, plan)
-        self.dsz = sh.axis_size(self.shape, self.daxes)
         self.data_index = self._index(self.daxes, coord)
-        # One data group per "model" coordinate, created in the same order on
-        # every rank (new_group is collective).
-        grid = mesh.mesh.reshape(-1, self.shape.get("model", 1))
-        for t in range(grid.shape[1]):
-            ranks = grid[:, t].tolist()
+        # One data group per "model" coordinate (one group of every rank when
+        # the model axis carries data), created in the same order on every
+        # rank (new_group is collective).  The rank lists are plain integers,
+        # read outside any fake-tensor mode.
+        for ranks in rank_groups(mesh, self.daxes):
             group = dist.new_group(ranks)
             if self.rank in ranks:
                 self.data_group, self.data_ranks = group, ranks

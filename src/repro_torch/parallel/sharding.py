@@ -23,8 +23,9 @@ computed on the reference's stacked leaf (``layers.3.attn.wq`` is path
 leaf lands on the dim the reference shards.  A plan under which the
 reference would shard the layer axis itself raises.
 
-``cache_specs`` and the ``"seq"`` rule of ``activation_rules`` (sequence
-parallelism) wait for the serving half of the parallel plans (ROADMAP A14b).
+``cache_specs`` places the serving caches (batch over the data axes, heads
+or sequence over "model"); the ``"seq"`` rule of ``activation_rules``
+(sequence parallelism) waits for ROADMAP A14b.
 """
 
 from __future__ import annotations
@@ -271,3 +272,76 @@ def spec_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+# ---------------------------------------------------------------------------
+# Decode-cache specs
+# ---------------------------------------------------------------------------
+
+_CACHE_KV = {"k", "v", "self_k", "self_v", "cross_k", "cross_v"}
+
+
+def cache_specs(cache_shapes: Mapping, mesh: MeshShape, plan: ExecutionPlan) -> dict:
+    """Decode-state specs of a cache tree (``{key: shape tuple | subtree |
+    other}``; a leaf that is not a shape, such as ``"pos"``, gets ``()``).
+    KV caches: (stack, B, S, H, hd) — batch over data (falling back to S when
+    batch doesn't divide), heads over model (falling back to S).  MLA
+    latents: (stack, B, S, r) — S over model.  Recurrent states (stack, B,
+    ...): batch over data, an SSM's or WKV's heads over model."""
+    all_b = batch_axes(mesh, plan)
+    model = "model" if "model" in mesh and plan.tp > 1 else None
+    msz = axis_size(mesh, model)
+
+    def fit_batch(dim: int):
+        ax = list(all_b)
+        while ax and dim % axis_size(mesh, tuple(ax)):
+            ax.pop()
+        if not ax or axis_size(mesh, tuple(ax)) == 1:
+            return None, 1
+        return (tuple(ax) if len(ax) > 1 else ax[0]), axis_size(mesh, tuple(ax))
+
+    def one(name: str, shape: tuple[int, ...]) -> Spec:
+        nd = len(shape)
+        parts: list = [None] * nd
+        if nd == 0:
+            return ()
+        if name in _CACHE_KV and nd == 5:
+            _, B, S, H, _ = shape
+            bspec, bsz = fit_batch(B)
+            parts[1] = bspec
+            if model and H % msz == 0:
+                parts[3] = model
+            elif model and S % msz == 0:
+                parts[2] = model
+            if bsz == 1 and parts[2] is None:
+                # batch unshardable (e.g. long_500k B=1): shard S over the
+                # unused axes instead (flash-decoding split-KV style)
+                used = {parts[3]} if parts[3] else set()
+                rem = tuple(a for a in all_b if a not in used)
+                if rem and S % axis_size(mesh, rem) == 0 and axis_size(mesh, rem) > 1:
+                    parts[2] = rem if len(rem) > 1 else rem[0]
+            return tuple(parts)
+        if name in ("c", "pe") and nd == 4:                 # MLA latents
+            _, B, S, _ = shape
+            parts[1], _ = fit_batch(B)
+            if model and S % msz == 0:
+                parts[2] = model
+            return tuple(parts)
+        # recurrent states / shifts: (stack, B, ...) — batch over data
+        if nd >= 2:
+            parts[1], _ = fit_batch(shape[1])
+            if name in ("ssm", "wkv") and model and nd >= 3 and shape[2] % msz == 0:
+                parts[2] = model                            # heads
+        return tuple(parts)
+
+    def walk(tree: Mapping) -> dict:
+        out = {}
+        for key, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                out[key] = walk(leaf)
+            elif isinstance(leaf, tuple):
+                out[key] = one(key, leaf)
+            else:
+                out[key] = ()
+        return out
+    return walk(cache_shapes)

@@ -217,46 +217,51 @@ from repro_torch.train.step import compile_train_step
 cfg = configs.get_reduced(args["arch"]).with_(dtype="float32")
 plan = ExecutionPlan(**args["plan"])
 model = build(cfg, device="cpu", opts=ModelOpts(loss_chunk=0))
-mesh = make_mesh(plan.dp, plan.tp, device="cpu")
 data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=args["seq"],
                                   global_batch=args["batch"], seed=0))
 specs = {k: torch.empty(a.shape, device="meta")
          for k, a in train_batch(cfg, data.batch(0), 0).items()}
-step, p_sh, o_sh, b_sh, params, opt = compile_train_step(model, plan, mesh,
-                                                         OptConfig(lr=args["lr"]), specs)
-mgr = CheckpointManager(args["ckpt"], async_save=False)
-params, opt, meta = mgr.restore(params, opt, step=args["from"], layout=step.layout)
-if plan.offload:
-    assert {s.memory_kind for s in o_sh["m"].values()} == {"pinned_host"}
-    assert all(t.device.type == "cpu" for k in ("m", "v") for t in opt[k].values())
-index, count = step.layout.batch_shard(b_sh["tokens"].spec)
-out = {}
-for i in range(meta["step"], meta["step"] + args["steps"]):
-    rows = train_batch(cfg, data.batch(i), i)
-    per = args["batch"] // count
-    batch = {k: torch.from_numpy(a[index * per:(index + 1) * per]) for k, a in rows.items()}
-    batch["tokens"] = batch["tokens"].long()
-    params, opt, m = step(params, opt, batch)
-    out[f"loss/{i}"] = m["loss"].item()
-    out[f"grad_norm/{i}"] = m["grad_norm"].item()
-end = meta["step"] + args["steps"]
-if args["save"]:
-    mgr.save(end, params, opt, meta={"plan": plan.strategy}, block=True, layout=step.layout)
-full = step.layout.full_params(params)
-if rank == 0:
-    np.savez(args["out"], **{k: np.float64(v) for k, v in out.items()},
-             **{"p/" + k: v.numpy() for k, v in full.items()})
+# One run per mesh shape (dp x tp by default; a tp=1 plan may also lay its
+# data parallelism over a "model" axis), each from the same checkpoint.
+for m, shape in enumerate(args["meshes"] or [[plan.dp, plan.tp]]):
+    mesh = make_mesh(*shape, device="cpu")
+    step, p_sh, o_sh, b_sh, params, opt = compile_train_step(model, plan, mesh,
+                                                             OptConfig(lr=args["lr"]), specs)
+    mgr = CheckpointManager(args["ckpt"], async_save=False)
+    params, opt, meta = mgr.restore(params, opt, step=args["from"], layout=step.layout)
+    if plan.offload:
+        assert {s.memory_kind for s in o_sh["m"].values()} == {"pinned_host"}
+        assert all(t.device.type == "cpu" for k in ("m", "v") for t in opt[k].values())
+    index, count = step.layout.batch_shard(b_sh["tokens"].spec)
+    out = {}
+    for i in range(meta["step"], meta["step"] + args["steps"]):
+        rows = train_batch(cfg, data.batch(i), i)
+        per = args["batch"] // count
+        batch = {k: torch.from_numpy(a[index * per:(index + 1) * per]) for k, a in rows.items()}
+        batch["tokens"] = batch["tokens"].long()
+        params, opt, mt = step(params, opt, batch)
+        out[f"loss/{i}"] = mt["loss"].item()
+        out[f"grad_norm/{i}"] = mt["grad_norm"].item()
+    end = meta["step"] + args["steps"]
+    if args["save"]:
+        mgr.save(end, params, opt, meta={"plan": plan.strategy}, block=True, layout=step.layout)
+    full = step.layout.full_params(params)
+    if rank == 0:
+        np.savez(args["out"] + (f".mesh{m}" if m else ""),
+                 **{k: np.float64(v) for k, v in out.items()},
+                 **{"p/" + k: v.numpy() for k, v in full.items()})
 dist.destroy_process_group()
 """
 
 
 def run_world(tmp_path: Path, name: str, arch: str, plan: dict, ckpt: Path, start: int,
-              steps: int, save: bool = False, world: int = 4) -> dict:
-    """Run ``WORKER`` on ``world`` gloo ranks; rank 0's results."""
+              steps: int, save: bool = False, world: int = 4, meshes=None):
+    """Run ``WORKER`` on ``world`` gloo ranks; rank 0's results (a list of
+    them, one per mesh shape, when ``meshes`` is given)."""
     out = tmp_path / f"{name}.npz"
     args = dict(store=str(tmp_path / f"{name}.store"), world=world, arch=arch, plan=plan,
                 batch=BATCH, seq=SEQ, lr=LR, ckpt=str(ckpt), steps=steps, save=save,
-                out=str(out), **{"from": start})
+                out=str(out), meshes=meshes, **{"from": start})
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", WORKER, json.dumps(args), str(r)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -269,8 +274,11 @@ def run_world(tmp_path: Path, name: str, arch: str, plan: dict, ckpt: Path, star
         for p in procs:
             p.kill()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
-    with np.load(out) as z:
-        return dict(z)
+    results = []
+    for m in range(len(meshes or [None])):
+        with np.load(f"{out}.mesh{m}.npz" if m else out) as z:
+            results.append(dict(z))
+    return results if meshes else results[0]
 
 
 class JaxRun:
@@ -356,13 +364,21 @@ WORLDS = {
 }
 
 
+# Worlds that also run their plan on other mesh shapes, in the same
+# processes: dp=4 (tp=1) on a 2 x 2 mesh spans the "model" axis with data
+# parallelism, as the reference's batch_axes does.
+WORLD_MESHES = {"dp4": [[4, 1], [2, 2]]}
+
+
 @pytest.mark.parametrize("label", list(WORLDS))
 def test_gloo_world_matches_single_device_jax(label, tmp_path, jax_runs):
     arch, plan = WORLDS[label]
     ref = jax_runs(arch, plan.get("ga_steps", 1))
     world = plan.get("dp", 1) * plan.get("tp", 1)
-    got = run_world(tmp_path, label, arch, plan, ref.ckpt, 0, 3, world=world)
-    check_world(got, ref, [0, 1, 2])
+    meshes = WORLD_MESHES.get(label)
+    got = run_world(tmp_path, label, arch, plan, ref.ckpt, 0, 3, world=world, meshes=meshes)
+    for one in got if meshes else [got]:
+        check_world(one, ref, [0, 1, 2])
 
 
 def test_reconfiguration_across_plans(tmp_path, jax_runs):
@@ -389,6 +405,104 @@ def test_reconfiguration_across_plans(tmp_path, jax_runs):
     for name, t in saved.items():
         assert torch.equal(restored[name], t), name
     check_world({"p/" + n: t.numpy() for n, t in saved.items()}, ref, [1], metrics=False)
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving
+# ---------------------------------------------------------------------------
+
+# One rank: for each model, compile_prefill and compile_decode_step on a 2 x 2
+# mesh under dp=4 (tp=1), this rank's rows of the prompt, a prefill and 3
+# greedy decode steps; rank 0 writes the gathered logits.
+SERVE_WORKER = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+args, rank = json.loads(sys.argv[1]), int(sys.argv[2])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="file://" + args["store"], rank=rank,
+                        world_size=args["world"])
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build
+from repro_torch.parallel.plan import ExecutionPlan
+from repro_torch.serve.engine import compile_decode_step, compile_prefill
+
+plan = ExecutionPlan(dp=4)
+mesh = make_mesh(2, 2, device="cpu")
+out = {}
+for arch, case in args["cases"].items():
+    cfg = configs.get_reduced(arch).with_(dtype="float32")
+    model = build(cfg, device="cpu")
+    state = torch.load(case["state"])
+    tokens = torch.from_numpy(np.load(case["tokens"])).long()
+    B, S = tokens.shape
+    pre = ShapeConfig("serve", case["max_len"], B, "prefill")
+    dec = ShapeConfig("serve", case["max_len"], B, "decode")
+    pstep, _, c_sh, b_sh, params, cache = compile_prefill(model, plan, mesh, pre, state)
+    dstep, *_ = compile_decode_step(model, plan, mesh, dec, state)
+    cache, logits = pstep(params, cache, {"tokens": pstep.rows_of(tokens)})
+    out[f"{arch}/0"] = logits.numpy()
+    out[f"{arch}/spec"] = json.dumps(c_sh["attn" if "attn" in c_sh else "layers"]["k"].spec)
+    for i in range(1, 4):
+        nxt = logits.argmax(-1)
+        cache, logits = dstep(params, cache, dstep.rows_of(nxt))
+        out[f"{arch}/{i}"] = logits.numpy()
+if rank == 0:
+    np.savez(args["out"], **out)
+dist.destroy_process_group()
+"""
+
+# Reduced llama2-7b at batch 2 (its rows over the "data" axis, each pair of
+# "model" ranks holding the same rows: 2 x 2 = 4 does not divide 2), reduced
+# zamba2-7b at batch 1 (no axis divides it: its shared attention's KV cache
+# is split over the sequence, 8 slots a rank, combined as split-KV decode).
+SERVE_CASES = {"llama2-7b": (2, 32), "zamba2-7b": (1, 32)}
+SERVE_PROMPT = 12
+
+
+def test_gloo_serve_world_matches_single_device_jax(tmp_path):
+    cases, want = {}, {}
+    for arch, (B, max_len) in SERVE_CASES.items():
+        cfg = jconfigs.get_reduced(arch).with_(dtype="float32")
+        jm = jbuild(cfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (B, SERVE_PROMPT)).astype(np.int32)
+        jc, jl = jax.jit(jm.prefill)(jp, jm.init_cache(B, max_len), {"tokens": jnp.asarray(tokens)})
+        want[f"{arch}/0"] = np.asarray(jl)
+        step = jax.jit(jm.decode_step)
+        for i in range(1, 4):
+            jc, jl = step(jp, jc, jnp.argmax(jl, -1).astype(jnp.int32))
+            want[f"{arch}/{i}"] = np.asarray(jl)
+        tcfg = configs.get_reduced(arch).with_(dtype="float32")
+        torch.save(params_from_jax_numpy(jax.tree.map(np.asarray, jp), tcfg),
+                   tmp_path / f"{arch}.pt")
+        np.save(tmp_path / f"{arch}.npy", tokens)
+        cases[arch] = {"state": str(tmp_path / f"{arch}.pt"),
+                       "tokens": str(tmp_path / f"{arch}.npy"), "max_len": max_len}
+    out = tmp_path / "serve.npz"
+    args = dict(store=str(tmp_path / "serve.store"), world=4, cases=cases, out=str(out))
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", SERVE_WORKER, json.dumps(args), str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(4)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    with np.load(out) as z:
+        got = dict(z)
+    # the placements the cases are there for
+    assert json.loads(str(got["llama2-7b/spec"])) == [None, "data", None, None, None]
+    assert json.loads(str(got["zamba2-7b/spec"])) == [None, None, ["data", "model"], None, None]
+    for key, w in want.items():
+        assert got[key].shape == w.shape, key
+        assert _rel(got[key], w) < TOL_LOSS, (key, _rel(got[key], w))
 
 
 # ---------------------------------------------------------------------------

@@ -42,9 +42,12 @@ def test_port_imports_no_jax_and_no_repro():
         "          'models.mla', 'configs.moonshot_v1_16b_a3b', 'configs.deepseek_v3_671b',\n"
         "          'models.encdec', 'configs.seamless_m4t_large_v2',\n"
         "          'configs.phi_3_vision_4_2b', 'analysis.lint', 'analysis.rules',\n"
-        "          'analysis.rules.rollback'):\n"
+        "          'analysis.rules.rollback', 'core.op_cost', 'core.roofline',\n"
+        "          'launch.dryrun', 'kernels.registry'):\n"
         "    assert f'repro_torch.{m}' in mods, (m, mods)\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'importing the port started a process group'\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

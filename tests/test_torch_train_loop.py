@@ -41,6 +41,19 @@ from repro_torch.convert import opt_state_to_jax_numpy, params_to_jax_numpy, rea
 from repro_torch.launch.train import train
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the port's steps here are tiny, and beside the
+    suite's other workers torch's default threads oversubscribe the cores
+    (a test of a second alone took two minutes among them)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cpu_train(**kw):
     return train(device="cpu", log_every=1000, **kw)
 
